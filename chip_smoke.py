@@ -1,0 +1,382 @@
+#!/usr/bin/env python3
+"""Run the PyTorch port of DAG-FL on one NVIDIA GPU and check what it computes.
+
+    python3 chip_smoke.py
+
+From the root of a checkout, on a machine with a CUDA card and nvcc. It
+builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (into
+``build/kernels/``), then:
+
+1. holds each kernel against its plain PyTorch version on the card, at the
+   main path's shapes and a few others, and times the kernel, the plain
+   version, one PyTorch library call computing the same function, and the
+   least time the card could take (``bound_ms``);
+2. drives the main path — ``run_dagfl`` (Algorithm 2 with the Algorithm-1
+   controller) with the paper's full-width CNN on 28x28 images, 100 nodes,
+   a 512-slot bank — and checks that it went through every kernel;
+3. runs a small ``run_dagfl`` on the card and on the CPU with the same draws
+   and checks that they agree.
+
+Prints one JSON line of kernel numbers, the card's name and power limit, and
+last ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, on
+any failure, or where there is no CUDA card or no ``src/repro_torch``.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# NVIDIA H100 SXM data sheet: HBM3 rate, and f32 outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+
+MAIN_P = 1_663_370          # CNNTask() parameters: the paper's full-width CNN
+MAIN_SLOTS = 512            # DagFLConfig.capacity
+F32_TOL = 1e-5              # kernel vs plain, f32: fma vs multiply-then-add
+ITERATIONS = 200
+EVAL_EVERY = 50
+PROFILED_ITERATIONS = 40
+SPIN_CYCLES = 40_000_000    # about 20 ms at the H100's 1.98 GHz boost clock
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def call_ms(fn, args_list, warmup=3):
+    """Mean wall ms per call over ``args_list`` (one call per entry), by CUDA
+    events, with the host in the loop: the wrapper's own cost included.
+
+    Each entry gathers other bank rows, so the 50 MB L2 cache holds none of
+    a call's inputs, as on the main path where the rows are seconds old.
+    """
+    for args in args_list[:warmup]:
+        fn(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for args in args_list:
+        fn(*args)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / len(args_list)
+
+
+def device_ms(fn, args_list, warmup=3):
+    """Mean device ms per call: a spin kernel holds the queue while the host
+    enqueues every call, so the events time the calls back to back on the
+    device, without the host's per-call cost. Fails if the host took longer
+    to enqueue than the spin lasted."""
+    for args in args_list[:warmup]:
+        fn(*args)
+    torch.cuda.synchronize()
+    spin0, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    spin0.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    t = time.perf_counter()
+    for args in args_list:
+        fn(*args)
+    end.record()
+    host_ms = 1e3 * (time.perf_counter() - t)
+    end.synchronize()
+    check(host_ms < spin0.elapsed_time(start),
+          f"enqueueing took {host_ms:.2f} ms, longer than the spin; raise SPIN_CYCLES")
+    return start.elapsed_time(end) / len(args_list)
+
+
+def bf16_ulp(x):
+    """One bf16 unit in the last place of each value of ``x`` (f32)."""
+    mag = x.abs().clamp(min=torch.finfo(torch.bfloat16).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def fedavg_case(fedavg, name, rows, k, n_notx, gen, reps=40):
+    """One shape of the Eq.-(1) kernel: error against the plain version and times."""
+    dev = rows.device
+    n, P = rows.shape
+    sets = []
+    for _ in range(reps):
+        slots = torch.randint(0, n, (k,), generator=gen, device=dev, dtype=torch.int32)
+        slots[:n_notx] = -1                              # NO_TX entries
+        w = torch.where(slots >= 0, torch.full((k,), 1.0 / k, device=dev), 0.0)
+        w = w / torch.clamp(w.sum(), min=1e-9)           # bank_average's renormalisation
+        sets.append((rows, slots.clamp(min=0), w.contiguous()))
+    got = fedavg.fedavg_gather(*sets[0])
+    want = fedavg.fedavg_gather_plain(*sets[0])
+    torch.cuda.synchronize()
+    check(got.shape == (P,) and got.dtype == rows.dtype, f"{name}: output {got.shape} {got.dtype}")
+    err = (got.float() - want.float()).abs()
+    max_abs_err = float(err.max())
+    if rows.dtype == torch.bfloat16:
+        # both sides round an f32 sum once; sums a hair apart may round to neighbours
+        picked = rows[sets[0][1].long()].float()
+        scale = (sets[0][2].abs()[:, None] * picked.abs()).sum(0)
+        tol = bf16_ulp(torch.maximum(got.float().abs(), want.float().abs())) + 1e-6 * scale
+        check(bool((err <= tol).all()), f"{name}: off by more than 1 bf16 ulp")
+    else:
+        check(max_abs_err <= F32_TOL, f"{name}: max abs err {max_abs_err} > {F32_TOL}")
+
+    library = lambda r, s, w: w.to(r.dtype) @ r[s.long()]     # yardstick only
+    ms = device_ms(fedavg.fedavg_gather, sets)
+    plain_ms = device_ms(fedavg.fedavg_gather_plain, sets)
+    library_ms = device_ms(library, sets)
+    wrapper_call_ms = call_ms(fedavg.fedavg_gather, sets)
+    # least bytes: each distinct row with a non-zero weight read once, the output written once
+    slots, w = sets[0][1], sets[0][2]
+    rows_read = len({int(s) for s, x in zip(slots.tolist(), w.tolist()) if x != 0.0})
+    nbytes = (rows_read + 1) * P * rows.element_size()
+    flops = 2 * rows_read * P
+    bytes_s, flops_s = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+    return {
+        "case": name, "rows": n, "P": P, "k": k, "no_tx": n_notx, "dtype": str(rows.dtype),
+        "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "call_ms": wrapper_call_ms,
+        "bound_ms": 1e3 * max(bytes_s, flops_s),
+        "bound_by": "bytes" if bytes_s >= flops_s else "operations",
+    }
+
+
+def phase_kernels(fedavg):
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    cases = []
+    rows = fedavg.alloc_rows(MAIN_SLOTS, MAIN_P, torch.float32, dev)
+    rows.normal_(generator=gen)
+    cases.append(fedavg_case(fedavg, "main_k2", rows, 2, 0, gen))
+    cases.append(fedavg_case(fedavg, "main_k2_no_tx", rows, 2, 1, gen))
+    cases.append(fedavg_case(fedavg, "main_k8", rows, 8, 0, gen))
+    del rows
+    rows = fedavg.alloc_rows(MAIN_SLOTS, 1_000_003, torch.float32, dev)
+    rows.normal_(generator=gen)
+    cases.append(fedavg_case(fedavg, "ragged_k2", rows, 2, 0, gen))
+    del rows
+    rows = fedavg.alloc_rows(MAIN_SLOTS, MAIN_P, torch.bfloat16, dev)
+    rows.normal_(generator=gen)
+    cases.append(fedavg_case(fedavg, "main_k2_bf16", rows, 2, 0, gen))
+    del rows
+    # the reference kernel's own (weights, models) signature: slot = arange(k)
+    models = torch.randn((3, 1_000_003), generator=gen, device=dev)
+    w = torch.tensor([0.2, 0.3, 0.5], device=dev)
+    got, want = fedavg.fedavg(w, models), fedavg.fedavg_gather_plain(models, torch.arange(3, device=dev), w)
+    torch.cuda.synchronize()
+    check(float((got - want).abs().max()) <= F32_TOL, "fedavg(weights, models) disagrees")
+    torch.cuda.empty_cache()
+    return cases
+
+
+def paper_setup(num_nodes, image_size, seed=0):
+    from repro_torch.data.synthetic import MnistLike
+    from repro_torch.fl.nodes import build_population
+
+    gen = MnistLike(image_size=image_size, seed=seed)
+    nodes = build_population(gen, num_nodes, seed=seed)
+    gval = gen.balanced(np.random.default_rng(seed + 31), 256)
+    return nodes, {"x": gval.x, "y": gval.y}
+
+
+def phase_main_path(cuda_build):
+    from repro_torch.configs.dagfl_paper_tasks import CNN_TASK
+    from repro_torch.fl.systems import SimConfig, run_dagfl
+    from repro_torch.fl.tasks import CNNTask
+
+    dcfg = CNN_TASK.dagfl                       # 100 nodes, capacity 512, alpha 5, k 2
+    task = CNNTask()
+    t = time.perf_counter()
+    nodes, gval = paper_setup(dcfg.num_nodes, task.image_size)
+    setup_s = time.perf_counter() - t
+    sim = SimConfig(iterations=ITERATIONS, eval_every=EVAL_EVERY, minibatch=dcfg.minibatch)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.LAUNCHES.clear()
+    t = time.perf_counter()
+    res = run_dagfl(task, nodes, dcfg, sim, gval, device="cuda")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t
+    launches = dict(cuda_build.LAUNCHES)
+
+    dag = res.extras["dag"]
+    check(dag.publisher.is_cuda and dag.approvers.is_cuda, "ledger is not on the card")
+    params = res.final_params
+    check(all(p.is_cuda for p in params.values()), "final params are not on the card")
+    check(sum(p.numel() for p in params.values()) == MAIN_P, "CNNTask() is not full width")
+    check(int(dag.count) == ITERATIONS + 1, f"ledger count {int(dag.count)} != {ITERATIONS + 1}")
+    check(len(res.accs) > 0 and bool(np.isfinite(res.accs).all()), f"accuracies {res.accs}")
+    check(all(bool(torch.isfinite(p).all()) for p in params.values()), "non-finite params")
+    expected = ITERATIONS + res.extras["checks_with_tip"]
+    check(launches.get("fedavg_gather", 0) == expected,
+          f"fedavg_gather launched {launches.get('fedavg_gather', 0)} times, "
+          f"expected {expected} (prepares + controller checks with a tip)")
+    return {
+        "iterations": ITERATIONS, "nodes": dcfg.num_nodes, "capacity": dcfg.capacity,
+        "params": MAIN_P, "population_setup_s": setup_s, "run_s": wall_s,
+        "stage_ms": res.extras["stage_ms"], "checks": res.extras["checks"],
+        "checks_with_tip": res.extras["checks_with_tip"], "launches": launches,
+        "accs": [float(a) for a in res.accs], "avg_latency_s": res.avg_latency,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+    }
+
+
+def phase_profile():
+    """The main path again, shorter, under ``torch.profiler``: the device's
+    busy share and where its time goes. The profiler slows the host, so
+    these times are not the main path's."""
+    from repro_torch.configs.dagfl_paper_tasks import CNN_TASK
+    from repro_torch.fl.systems import SimConfig, run_dagfl
+    from repro_torch.fl.tasks import CNNTask
+    from torch.profiler import ProfilerActivity, profile
+
+    dcfg = CNN_TASK.dagfl
+    nodes, gval = paper_setup(dcfg.num_nodes, 28)
+    sim = SimConfig(iterations=PROFILED_ITERATIONS, eval_every=EVAL_EVERY, minibatch=dcfg.minibatch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run_dagfl(CNNTask(), nodes, dcfg, sim, gval, device="cuda")
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t)
+    spans = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not spans:
+        return {"iterations": PROFILED_ITERATIONS, "wall_ms": wall_ms,
+                "device_busy_ms": "not measured (no device events in the trace)"}
+    busy_us, cur_end = 0.0, float("-inf")
+    by_name = {}
+    for start, end, name in sorted(spans):
+        busy_us += max(0.0, end - max(start, cur_end))
+        cur_end = max(cur_end, end)
+        by_name[name] = by_name.get(name, 0.0) + (end - start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    fedavg = [end - start for start, end, name in spans if "fedavg_gather_kernel" in name]
+    return {
+        "iterations": PROFILED_ITERATIONS, "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+        "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
+        "device_ops": len(spans),
+        "fedavg_gather_in_loop": {"launches": len(fedavg), "ms_total": sum(fedavg) / 1e3,
+                                  "ms_mean": sum(fedavg) / 1e3 / max(len(fedavg), 1)},
+        "top_device_ms": {name[:80]: us / 1e3 for name, us in top},
+    }
+
+
+def phase_small_agreement():
+    """A small run on the card and on the CPU, with the same draws."""
+    from repro_torch.fl.experiments import default_dagfl_config, make_cnn_setup
+    from repro_torch.fl.systems import SimConfig, run_dagfl
+
+    dcfg = default_dagfl_config(num_nodes=8)
+    sim = SimConfig(iterations=20, eval_every=5, seed=0)
+
+    def draw_on(device):
+        def draw(stream, index):
+            rng = np.random.default_rng([0 if stream == "prepare" else 1, index])
+            u = rng.uniform(1e-9, 1.0, dcfg.capacity).astype(np.float32)
+            return torch.from_numpy(u).to(device)
+        return draw
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        task, nodes, gval, _ = make_cnn_setup(num_nodes=8, seed=0)
+        out[device] = run_dagfl(task, nodes, dcfg, sim, gval, device=device, draw=draw_on(device))
+    g, c = out["cuda"], out["cpu"]
+    check(g.avg_latency == c.avg_latency, "avg latency differs")
+    check(np.array_equal(g.iters, c.iters) and np.array_equal(g.times, c.times), "curve times differ")
+    check(np.array_equal(g.accs, c.accs), f"accuracies differ: {g.accs} vs {c.accs}")
+    dg, dc = g.extras["dag"], c.extras["dag"]
+    for name in ("publisher", "approvals", "approval_count", "model_slot", "count",
+                 "published_per_node", "contributing_m0", "contributing_m1"):
+        check(torch.equal(getattr(dg, name).cpu(), getattr(dc, name)), f"ledger {name} differs")
+    diff = max(float((g.final_params[n].cpu() - c.final_params[n]).abs().max()) for n in c.final_params)
+    check(diff <= 1e-4, f"final params differ by {diff}")
+    return {"final_params_max_abs_diff": diff, "accs": [float(a) for a in g.accs]}
+
+
+def nvidia_smi_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
+              file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch" / "csrc").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}; run it from a "
+              "checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import cuda_build, fedavg
+
+    resolve_device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    try:
+        t = time.perf_counter()
+        sources = sorted(cuda_build.CSRC.glob("*.cu"))
+        libs = cuda_build.build(sources)
+        build_s = time.perf_counter() - t
+        for lib in libs:
+            log = lib.with_suffix(".log")
+            report = log.read_text().strip() if log.exists() else "(built earlier)"
+            print(f"[build] {lib.name} ({build_s:.1f} s)\n{report}")
+
+        t = time.perf_counter()
+        cases = phase_kernels(fedavg)
+        print(json.dumps({"fedavg_cases": cases}))
+        print(f"[phase 1] kernel vs plain: {time.perf_counter() - t:.1f} s")
+
+        main_path = phase_main_path(cuda_build)
+        print(json.dumps({"main_path": main_path}))
+        print(json.dumps({"profile": phase_profile()}))
+
+        small = phase_small_agreement()
+        print(json.dumps({"small_agreement": small}))
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+
+    main_case = next(c for c in cases if c["case"] == "main_k2")
+    kernels = [{
+        "name": "fedavg_gather",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/fedavg.cu",
+        "replaces": "src/repro/kernels/fedavg.py:27",
+        "launches": main_path["launches"].get("fedavg_gather", 0),
+        "max_abs_err": main_case["max_abs_err"],
+        "ms": main_case["ms"],
+        "kernel_ms": main_case["ms"],
+        "call_ms": main_case["call_ms"],
+        "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"],
+        "bound_by": main_case["bound_by"],
+        "library_ms": main_case["library_ms"],
+    }]
+    print(json.dumps({"kernels": kernels}))
+    print(nvidia_smi_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
