@@ -9,13 +9,19 @@ builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (into
 
 1. holds each kernel against its plain PyTorch version on the card, at the
    main path's shapes and a few others, and times the kernel, the plain
-   version, one PyTorch library call computing the same function, and the
-   least time the card could take (``bound_ms``);
+   version, one PyTorch library call computing the same function where there
+   is one, and the least time the card could take (``bound_ms``);
 2. drives the main path — ``run_dagfl`` (Algorithm 2 with the Algorithm-1
    controller) with the paper's full-width CNN on 28x28 images, 100 nodes,
-   a 512-slot bank — and checks that it went through every kernel;
-3. runs a small ``run_dagfl`` on the card and on the CPU with the same draws
-   and checks that they agree.
+   a 512-slot bank — and checks that it went through every kernel; then its
+   second half, ``run_dagfl_gossip`` (each node on its own ledger replica,
+   synced by anti-entropy gossip over the full overlay) at the same size;
+   each path under ``torch.profiler`` too, shorter;
+3. runs a small ``run_dagfl`` and a small ``run_dagfl_gossip`` (a lossy ring
+   with a partition) on the card and on the CPU with the same draws and
+   checks that they agree.
+
+Phase 1 of the merge-winner kernel runs last, after phase 3.
 
 Prints one JSON line of kernel numbers, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, on
@@ -41,6 +47,10 @@ PEAK_F32_FLOPS = 67e12
 
 MAIN_P = 1_663_370          # CNNTask() parameters: the paper's full-width CNN
 MAIN_SLOTS = 512            # DagFLConfig.capacity
+MAIN_NODES = 100            # DagFLConfig.num_nodes: the gossip path's replicas
+# the winner's least work per admitted (receiver, sender, row) candidate:
+# occupancy, time >, time ==, publisher >, publisher ==, counter max
+GOSSIP_OPS_PER_CHECK = 6
 F32_TOL = 1e-5              # kernel vs plain, f32: fma vs multiply-then-add
 ITERATIONS = 200
 EVAL_EVERY = 50
@@ -80,24 +90,29 @@ def call_ms(fn, args_list, warmup=3):
 def device_ms(fn, args_list, warmup=3):
     """Mean device ms per call: a spin kernel holds the queue while the host
     enqueues every call, so the events time the calls back to back on the
-    device, without the host's per-call cost. Fails if the host took longer
-    to enqueue than the spin lasted."""
+    device, without the host's per-call cost. Where the host took longer to
+    enqueue than the spin lasted, the spin is made 4x longer and the run
+    repeated, three times at most, then it fails."""
     for args in args_list[:warmup]:
         fn(*args)
     torch.cuda.synchronize()
-    spin0, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-    spin0.record()
-    torch.cuda._sleep(SPIN_CYCLES)
-    start.record()
-    t = time.perf_counter()
-    for args in args_list:
-        fn(*args)
-    end.record()
-    host_ms = 1e3 * (time.perf_counter() - t)
-    end.synchronize()
-    check(host_ms < spin0.elapsed_time(start),
-          f"enqueueing took {host_ms:.2f} ms, longer than the spin; raise SPIN_CYCLES")
-    return start.elapsed_time(end) / len(args_list)
+    spin_cycles = SPIN_CYCLES
+    for _ in range(4):
+        spin0, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        spin0.record()
+        torch.cuda._sleep(spin_cycles)
+        start.record()
+        t = time.perf_counter()
+        for args in args_list:
+            fn(*args)
+        end.record()
+        host_ms = 1e3 * (time.perf_counter() - t)
+        end.synchronize()
+        if host_ms < spin0.elapsed_time(start):
+            return start.elapsed_time(end) / len(args_list)
+        spin_cycles *= 4
+    raise SmokeFailure(f"enqueueing took {host_ms:.2f} ms, longer than a spin of "
+                       f"{spin_cycles // 4} cycles")
 
 
 def bf16_ulp(x):
@@ -181,6 +196,62 @@ def phase_kernels(fedavg):
     return cases
 
 
+def gossip_case(gm, name, r, rr, cap, offset, density, gen, reps=40):
+    """One shape of the merge-winner kernel: bitwise against the plain
+    version, then times. The state has key ties, equal times under other
+    publishers and rows nobody holds."""
+    dev = torch.device("cuda")
+    kw = dict(generator=gen, device=dev)
+    pub = torch.randint(-1, 4, (r, cap), dtype=torch.int32, **kw)
+    pub[:, ::37] = -1
+    t = torch.randint(0, 4, (r, cap), **kw).float() * 0.5
+    ac = torch.randint(0, 6, (r, cap), dtype=torch.int32, **kw)
+    mask = torch.rand((rr, r), **kw) < density
+    row_ids = None if offset is None else offset + torch.arange(rr, device=dev)
+    got = gm.gossip_winner(t, pub, ac, mask, row_offset=offset)
+    want = gm.gossip_winner_plain(t, pub, ac, mask, row_ids=row_ids)
+    torch.cuda.synchronize()
+    max_abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          f"{name}: gossip_winner differs from its plain version (max abs err {max_abs_err})")
+
+    kernel = lambda: gm.gossip_winner(t, pub, ac, mask, row_offset=offset)
+    plain = lambda: gm.gossip_winner_plain(t, pub, ac, mask, row_ids=row_ids)
+    ms = device_ms(kernel, [()] * reps)
+    # the plain version launches about 30 kernels a call: 40 calls queued
+    # behind the spin would fill CUDA's launch queue and block the host
+    plain_ms = device_ms(plain, [()] * 8)
+    wrapper_call_ms = call_ms(kernel, [()] * reps)
+    # least bytes: the three (R, cap) columns and the mask read once, the two
+    # outputs written once; least operations: every admitted candidate
+    # (the receiver always admitted) checked once
+    nbytes = 3 * r * cap * 4 + rr * r + 2 * rr * cap * 4
+    ids = (0 if offset is None else offset) + torch.arange(rr, device=dev)
+    own = ids[:, None] == torch.arange(r, device=dev)[None, :]
+    checks = int((mask | own).sum()) * cap
+    ops = GOSSIP_OPS_PER_CHECK * checks
+    bytes_s, ops_s = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOPS
+    return {
+        "case": name, "R": r, "Rr": rr, "cap": cap, "row_offset": offset, "density": density,
+        "candidate_checks": checks, "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+        "call_ms": wrapper_call_ms, "library_ms": None,
+        "bound_ms": 1e3 * max(bytes_s, ops_s),
+        "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+    }
+
+
+def phase_gossip_kernel(gm):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    return [
+        gossip_case(gm, "main", MAIN_NODES, MAIN_NODES, MAIN_SLOTS, None, 0.5, gen),
+        gossip_case(gm, "union", MAIN_NODES, 1, MAIN_SLOTS, None, 1.0, gen),
+        gossip_case(gm, "block", MAIN_NODES, 25, MAIN_SLOTS, 50, 0.5, gen),
+        gossip_case(gm, "ragged", MAIN_NODES, MAIN_NODES, 1000, None, 0.5, gen),
+        gossip_case(gm, "scale", 400, 400, MAIN_SLOTS, None, 0.5, gen, reps=20),
+    ]
+
+
 def paper_setup(num_nodes, image_size, seed=0):
     from repro_torch.data.synthetic import MnistLike
     from repro_torch.fl.nodes import build_population
@@ -234,28 +305,83 @@ def phase_main_path(cuda_build):
     }
 
 
-def phase_profile():
-    """The main path again, shorter, under ``torch.profiler``: the device's
-    busy share and where its time goes. The profiler slows the host, so
-    these times are not the main path's."""
+def phase_gossip_main_path(cuda_build):
+    """The main path's second half: ``run_dagfl_gossip`` with its defaults
+    (full overlay, sync period 1 s, ticks engine, fused round) at full width."""
     from repro_torch.configs.dagfl_paper_tasks import CNN_TASK
-    from repro_torch.fl.systems import SimConfig, run_dagfl
+    from repro_torch.fl.systems import SimConfig, run_dagfl_gossip
+    from repro_torch.fl.tasks import CNNTask
+
+    dcfg = CNN_TASK.dagfl
+    task = CNNTask()
+    nodes, gval = paper_setup(dcfg.num_nodes, task.image_size)
+    sim = SimConfig(iterations=ITERATIONS, eval_every=EVAL_EVERY, minibatch=dcfg.minibatch)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.LAUNCHES.clear()
+    t = time.perf_counter()
+    res = run_dagfl_gossip(task, nodes, dcfg, sim, gval, device="cuda")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t
+    launches = dict(cuda_build.LAUNCHES)
+
+    ex = res.extras
+    union, replicas = ex["dag"], ex["replicas"].dags
+    check(union.publisher.is_cuda and union.approvers.is_cuda, "union ledger is not on the card")
+    check(replicas.publisher.is_cuda and replicas.approvers.is_cuda, "replicas are not on the card")
+    check(tuple(replicas.publisher.shape) == (MAIN_NODES, MAIN_SLOTS),
+          f"replicas {tuple(replicas.publisher.shape)}")
+    check(int(union.count) == ITERATIONS + 1, f"union count {int(union.count)} != {ITERATIONS + 1}")
+    check(ex["sync_rounds"] > 0, "no sync round ran")
+    check(len(res.accs) > 0 and bool(np.isfinite(res.accs).all()), f"accuracies {res.accs}")
+    params = res.final_params
+    check(sum(p.numel() for p in params.values()) == MAIN_P, "CNNTask() is not full width")
+    check(all(bool(torch.isfinite(p).all()) for p in params.values()), "non-finite params")
+    # one winner launch per executed round, one per union fold: each
+    # controller check folds once, and so does the mid-run counter snapshot
+    expected = ex["sync_rounds"] + ex["checks"] + 1
+    check(launches.get("gossip_winner", 0) == expected,
+          f"gossip_winner launched {launches.get('gossip_winner', 0)} times, expected {expected} "
+          f"({ex['sync_rounds']} rounds + {ex['checks']} checks + 1 snapshot)")
+    expected = ITERATIONS + ex["checks_with_tip"]
+    check(launches.get("fedavg_gather", 0) == expected,
+          f"fedavg_gather launched {launches.get('fedavg_gather', 0)} times, expected {expected}")
+    return {
+        "iterations": ITERATIONS, "nodes": dcfg.num_nodes, "capacity": dcfg.capacity,
+        "params": MAIN_P, "run_s": wall_s, "stage_ms": ex["stage_ms"], "checks": ex["checks"],
+        "checks_with_tip": ex["checks_with_tip"], "sync_rounds": ex["sync_rounds"],
+        "dispatch_counts": ex["dispatch_counts"], "launches": launches,
+        "missing_rows_final_max": int(ex["missing_rows_final"].max()),
+        "approvals_issued": ex["approvals_issued"], "approvals_in_union": ex["approvals_in_union"],
+        "accs": [float(a) for a in res.accs], "avg_latency_s": res.avg_latency,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+    }
+
+
+def phase_profile(system="run_dagfl"):
+    """A path again, shorter, under ``torch.profiler``: the device's busy
+    share and where its time goes. The profiler slows the host, so these
+    times are not the main path's."""
+    from repro_torch.configs.dagfl_paper_tasks import CNN_TASK
+    from repro_torch.fl import systems
     from repro_torch.fl.tasks import CNNTask
     from torch.profiler import ProfilerActivity, profile
 
     dcfg = CNN_TASK.dagfl
     nodes, gval = paper_setup(dcfg.num_nodes, 28)
-    sim = SimConfig(iterations=PROFILED_ITERATIONS, eval_every=EVAL_EVERY, minibatch=dcfg.minibatch)
+    sim = systems.SimConfig(iterations=PROFILED_ITERATIONS, eval_every=EVAL_EVERY,
+                            minibatch=dcfg.minibatch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        run_dagfl(CNNTask(), nodes, dcfg, sim, gval, device="cuda")
+        getattr(systems, system)(CNNTask(), nodes, dcfg, sim, gval, device="cuda")
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t)
     spans = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
     if not spans:
-        return {"iterations": PROFILED_ITERATIONS, "wall_ms": wall_ms,
+        return {"system": system, "iterations": PROFILED_ITERATIONS, "wall_ms": wall_ms,
                 "device_busy_ms": "not measured (no device events in the trace)"}
     busy_us, cur_end = 0.0, float("-inf")
     by_name = {}
@@ -264,15 +390,17 @@ def phase_profile():
         cur_end = max(cur_end, end)
         by_name[name] = by_name.get(name, 0.0) + (end - start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    fedavg = [end - start for start, end, name in spans if "fedavg_gather_kernel" in name]
-    return {
-        "iterations": PROFILED_ITERATIONS, "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
-        "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
+    out = {
+        "system": system, "iterations": PROFILED_ITERATIONS, "wall_ms": wall_ms,
+        "device_busy_ms": busy_us / 1e3, "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
         "device_ops": len(spans),
-        "fedavg_gather_in_loop": {"launches": len(fedavg), "ms_total": sum(fedavg) / 1e3,
-                                  "ms_mean": sum(fedavg) / 1e3 / max(len(fedavg), 1)},
-        "top_device_ms": {name[:80]: us / 1e3 for name, us in top},
     }
+    for kernel in ("fedavg_gather", "gossip_winner"):
+        us = [end - start for start, end, name in spans if f"{kernel}_kernel" in name]
+        out[f"{kernel}_in_loop"] = {"launches": len(us), "ms_total": sum(us) / 1e3,
+                                    "ms_mean": sum(us) / 1e3 / max(len(us), 1)}
+    out["top_device_ms"] = {name[:80]: us / 1e3 for name, us in top}
+    return out
 
 
 def phase_small_agreement():
@@ -307,6 +435,60 @@ def phase_small_agreement():
     return {"final_params_max_abs_diff": diff, "accs": [float(a) for a in g.accs]}
 
 
+def phase_small_gossip_agreement():
+    """A small ``run_dagfl_gossip`` on the card and on the CPU, with the same
+    tip-selection and edge draws: a lossy ring with strided links and a
+    partition that heals."""
+    from repro_torch.fl.experiments import default_dagfl_config, make_cnn_setup
+    from repro_torch.fl.systems import SimConfig, run_dagfl_gossip
+    from repro_torch.net.gossip import PartitionSchedule
+    from repro_torch.net.topology import ring, split_halves
+
+    n = 8
+    dcfg = default_dagfl_config(num_nodes=n)
+    sim = SimConfig(iterations=20, eval_every=5, seed=0)
+
+    def draws_on(device):
+        def draw(stream, index):
+            rng = np.random.default_rng([0 if stream == "prepare" else 1, index])
+            return torch.from_numpy(rng.uniform(1e-9, 1.0, dcfg.capacity).astype(np.float32)).to(device)
+
+        def edge_draw(round_index):
+            rng = np.random.default_rng([2, round_index])
+            return torch.from_numpy(rng.random((n, n), dtype=np.float32)).to(device)
+        return draw, edge_draw
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        task, nodes, gval, _ = make_cnn_setup(num_nodes=n, seed=0)
+        draw, edge_draw = draws_on(device)
+        out[device] = run_dagfl_gossip(
+            task, nodes, dcfg, sim, gval, topology=ring(n, link_latency=1.5, drop=0.3),
+            partition=PartitionSchedule(split_halves(n), 5.0, 12.0), device=device, draw=draw,
+            edge_draw=edge_draw)
+    g, c = out["cuda"], out["cpu"]
+    check(g.avg_latency == c.avg_latency, "gossip: avg latency differs")
+    check(np.array_equal(g.iters, c.iters) and np.array_equal(g.times, c.times),
+          "gossip: curve times differ")
+    check(np.array_equal(g.accs, c.accs), f"gossip: accuracies differ: {g.accs} vs {c.accs}")
+    columns = ("publisher", "publish_time", "approvals", "approvers", "approval_count",
+               "model_slot", "count", "published_per_node", "contributing_m0", "contributing_m1")
+    for what, dg, dc in (("union", g.extras["dag"], c.extras["dag"]),
+                         ("replicas", g.extras["replicas"].dags, c.extras["replicas"].dags)):
+        for name in columns:
+            check(torch.equal(getattr(dg, name).cpu(), getattr(dc, name)),
+                  f"gossip: {what} {name} differs")
+    for key in ("sync_rounds", "dispatch_counts", "approvals_issued", "approvals_in_union"):
+        check(g.extras[key] == c.extras[key], f"gossip: {key} differs: {g.extras[key]} vs {c.extras[key]}")
+    check(np.array_equal(g.extras["divergence_curve"], c.extras["divergence_curve"]),
+          "gossip: divergence curve differs")
+    check(g.extras["sync_rounds"] > 0, "gossip: no sync round ran")
+    diff = max(float((g.final_params[k].cpu() - c.final_params[k]).abs().max()) for k in c.final_params)
+    check(diff <= 1e-4, f"gossip: final params differ by {diff}")
+    return {"final_params_max_abs_diff": diff, "accs": [float(a) for a in g.accs],
+            "sync_rounds": g.extras["sync_rounds"], "dispatch_counts": g.extras["dispatch_counts"]}
+
+
 def nvidia_smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -327,6 +509,7 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.device import resolve_device
     from repro_torch.kernels import cuda_build, fedavg
+    from repro_torch.kernels import gossip_merge
 
     resolve_device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -348,9 +531,16 @@ def main() -> int:
         main_path = phase_main_path(cuda_build)
         print(json.dumps({"main_path": main_path}))
         print(json.dumps({"profile": phase_profile()}))
+        gossip_path = phase_gossip_main_path(cuda_build)
+        print(json.dumps({"gossip_main_path": gossip_path}))
+        print(json.dumps({"profile_gossip": phase_profile("run_dagfl_gossip")}))
 
         small = phase_small_agreement()
         print(json.dumps({"small_agreement": small}))
+        small_gossip = phase_small_gossip_agreement()
+        print(json.dumps({"small_gossip_agreement": small_gossip}))
+        gossip_cases = phase_gossip_kernel(gossip_merge)
+        print(json.dumps({"gossip_cases": gossip_cases}))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -371,6 +561,22 @@ def main() -> int:
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
     }]
+    gossip_main = next(c for c in gossip_cases if c["case"] == "main")
+    kernels.append({
+        "name": "gossip_winner",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/gossip_merge.cu",
+        "replaces": "src/repro/kernels/gossip_merge.py:92",
+        "launches": gossip_path["launches"].get("gossip_winner", 0),
+        "max_abs_err": max(c["max_abs_err"] for c in gossip_cases),
+        "ms": gossip_main["ms"],
+        "kernel_ms": gossip_main["ms"],
+        "call_ms": gossip_main["call_ms"],
+        "plain_ms": gossip_main["plain_ms"],
+        "bound_ms": gossip_main["bound_ms"],
+        "bound_by": gossip_main["bound_by"],
+        "library_ms": None,          # no single PyTorch call computes the winner
+    })
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -93,14 +93,26 @@ def make_dagfl_stages(
     return prepare, commit_prepared
 
 
-def commit_prepared(dag, bank, node_id, t_publish, prepared: Prepared):
-    """Stage-4 publication of a ``Prepared`` iteration at ledger row
-    ``count % capacity``. The bank row is written in place."""
-    slot = torch.remainder(dag.count, dag_lib.capacity_of(dag))
+def commit_prepared(dag, bank, node_id, t_publish, prepared: Prepared,
+                    slot=None, new_count=None):
+    """Stage-4 publication of a ``Prepared`` iteration — the commit body of
+    every runtime. The bank row is written in place.
+
+    Default (``slot=None``): append at the ledger-local row
+    ``count % capacity``. Gossip replicas pass a slot and count watermark
+    from the global publish sequence (``repro_torch.net.replica.global_row``),
+    so a transaction lands in the same slot on every replica.
+    """
+    if slot is None:
+        slot = torch.remainder(dag.count, dag_lib.capacity_of(dag))
+        new_count = dag.count + 1
+    elif new_count is None:
+        raise ValueError("commit_prepared: slot and new_count go together "
+                         "(see repro_torch.net.replica.global_row)")
     tag = bank_lib.auth_checksum(prepared.new_params)
     bank = bank_lib.bank_write(bank, slot, prepared.new_params)
     dag = dag_lib.publish_at(
-        dag, slot, dag.count + 1, node_id, t_publish,
+        dag, slot, new_count, node_id, t_publish,
         prepared.chosen_rows, prepared.new_accuracy, tag, slot,
     )
     return dag, bank

@@ -199,3 +199,177 @@ def num_tips(dag: DagState, now: torch.Tensor, tau_max: float) -> torch.Tensor:
 def isolated_mask(dag: DagState, m: int) -> torch.Tensor:
     """Transactions with <= m approvals are isolated (§V.4)."""
     return (dag.publisher >= 0) & (dag.approval_count <= m)
+
+
+# ---------------------------------------------------------------------------
+# Merge: reduction-friendly views shared by the two-replica fold and the
+# fused gossip round (repro_torch.kernels.gossip_merge)
+# ---------------------------------------------------------------------------
+
+
+class MergeViews(NamedTuple):
+    """One ``DagState`` split by merge role.
+
+    ``keys``        the (publish_time, publisher) row identity the winner
+                    rule reduces over;
+    ``approvers``   per-row approver-node bitsets, merged as the exact set
+                    union (bitwise OR) across candidates holding the winning
+                    identity; ``approval_count`` is the union's popcount;
+    ``payload``     row-addressed leaves that follow the winning identity
+                    wholesale (keys included);
+    ``watermarks``  monotone ledger-wide counters merged by element-wise max.
+
+    ``merge``, the union fold (``repro_torch.net.replica.merge_all``) and the
+    fused round all consume these views, so a new ``DagState`` field is
+    classified here once.
+    """
+
+    keys: Tuple[torch.Tensor, torch.Tensor]       # (publish_time, publisher)
+    approvers: torch.Tensor                       # (..., cap, N) bool
+    payload: Tuple[Tuple[str, torch.Tensor], ...]
+    watermarks: Tuple[Tuple[str, torch.Tensor], ...]
+
+
+def merge_views(dag: DagState) -> MergeViews:
+    return MergeViews(
+        keys=(dag.publish_time, dag.publisher),
+        approvers=dag.approvers,
+        payload=(
+            ("publisher", dag.publisher),
+            ("publish_time", dag.publish_time),
+            ("approvals", dag.approvals),
+            ("accuracy", dag.accuracy),
+            ("auth_tag", dag.auth_tag),
+            ("model_slot", dag.model_slot),
+        ),
+        watermarks=(
+            ("count", dag.count),
+            ("published_per_node", dag.published_per_node),
+            ("contributing_m0", dag.contributing_m0),
+            ("contributing_m1", dag.contributing_m1),
+        ),
+    )
+
+
+def row_winner(local_keys, remote_keys) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(take_remote, same_tx) masks — THE row-merge rule.
+
+    A slot occupied on one side only adopts that side; two different
+    transactions resolve to the lexicographically larger
+    ``(publish_time, publisher)`` key; the same transaction on both sides is
+    ``same_tx`` (approver sets union).
+    """
+    l_time, l_pub = local_keys
+    r_time, r_pub = remote_keys
+    l_occ = l_pub >= 0
+    r_occ = r_pub >= 0
+    same_tx = l_occ & r_occ & (l_time == r_time) & (l_pub == r_pub)
+    remote_newer = (r_time > l_time) | ((r_time == l_time) & (r_pub > l_pub))
+    take_remote = (r_occ & ~l_occ) | (r_occ & l_occ & ~same_tx & remote_newer)
+    return take_remote, same_tx
+
+
+def merge(local: DagState, remote: DagState) -> DagState:
+    """Anti-entropy reconciliation of two replicas of one ledger (§III.A).
+
+    Row-wise by ``row_winner`` over ``merge_views``: payload leaves follow
+    the winning identity; the same transaction on both sides keeps the
+    UNION of the two approver bitsets and rederives ``approval_count`` as
+    its popcount; ``count`` and the per-node counters merge by max.
+
+    Either side may carry leading replica axes (every leaf stacked the same
+    way, as in ``repro_torch.net.replica``); they broadcast against each
+    other, so one call merges one sender into every receiver at once.
+    """
+    lv, rv = merge_views(local), merge_views(remote)
+    take_remote, same_tx = row_winner(lv.keys, rv.keys)
+    remote_payload = dict(rv.payload)
+    row_dims = max(local.publisher.dim(), remote.publisher.dim())
+
+    def pick(a, b):
+        trailing = max(a.dim(), b.dim()) - row_dims
+        sel = take_remote.reshape(take_remote.shape + (1,) * trailing)
+        return torch.where(sel, b, a)
+
+    approvers = torch.where(take_remote[..., None], rv.approvers, lv.approvers)
+    approvers = torch.where(same_tx[..., None], lv.approvers | rv.approvers, approvers)
+    fields = {name: pick(a, remote_payload[name]) for name, a in lv.payload}
+    remote_marks = dict(rv.watermarks)
+    fields.update({name: torch.maximum(a, remote_marks[name]) for name, a in lv.watermarks})
+    return DagState(
+        approvers=approvers,
+        approval_count=approvers.sum(dim=-1, dtype=torch.int32),
+        **fields,
+    )
+
+
+def merge_select(
+    dags: DagState,
+    src: torch.Tensor,                 # (Rr, cap) i32 winner indices per row
+    mask: torch.Tensor = None,         # (Rr, R) bool dense candidate mask
+    nbr_idx: torch.Tensor = None,      # (Rr, D) i32 candidate lists (sparse form)
+    nbr_act: torch.Tensor = None,      # (Rr, D) bool candidate activity
+) -> DagState:
+    """Materialize merged replicas from per-row winner indices.
+
+    ``dags`` is a stacked replica set (every leaf has a leading (R, ...)
+    axis). Payload leaves gather the winning sender's row
+    (``out[i, r] = leaf[src[i, r], r]``); watermark leaves max-reduce over
+    the candidate senders, given as a dense (Rr, R) ``mask`` (the kernel's
+    form, the receiver included) or as ``(nbr_idx, nbr_act)`` lists (the
+    receiver an active entry of its own list). Approver bitsets take the
+    exact OR-union over every candidate holding the winning identity, and
+    ``approval_count`` is its popcount.
+
+    The union is a contraction over candidates of 0/1 values, computed in
+    f32 (``torch.einsum``): the sums are at most R < 2**24, so they are exact
+    whatever the matmul precision.
+    """
+    views = merge_views(dags)
+    idx = src.long()
+
+    def gather(x):
+        i = idx.reshape(idx.shape + (1,) * (x.dim() - 2)).expand(idx.shape + x.shape[2:])
+        return torch.gather(x, 0, i)
+
+    if mask is not None:
+        def watermark(w):
+            m = mask.reshape(mask.shape + (1,) * (w.dim() - 1))
+            return torch.where(m, w[None], 0).amax(dim=1)
+    else:
+        nbr = nbr_idx.long()
+
+        def watermark(w):
+            m = nbr_act.reshape(nbr_act.shape + (1,) * (w.dim() - 1))
+            return torch.where(m, w[nbr], 0).amax(dim=1)
+
+    fields = {name: gather(x) for name, x in views.payload}
+    fields.update({name: watermark(w) for name, w in views.watermarks})
+
+    # a candidate contributes its bitset for row r iff it is active and
+    # holds the winning (publish_time, publisher) identity
+    w_time, w_pub = fields["publish_time"], fields["publisher"]
+    t_all, p_all = views.keys
+    appr = views.approvers.float()
+    if mask is not None:
+        same = (
+            mask[:, :, None]
+            & (p_all[None] == w_pub[:, None])
+            & (t_all[None] == w_time[:, None])
+            & (w_pub[:, None] >= 0)
+        )
+        union = torch.einsum("ijr,jrn->irn", same.float(), appr) > 0
+    else:
+        same = (
+            nbr_act[:, :, None]
+            & (p_all[nbr] == w_pub[:, None])
+            & (t_all[nbr] == w_time[:, None])
+            & (w_pub[:, None] >= 0)
+        )
+        union = torch.einsum("ijr,ijrn->irn", same.float(), appr[nbr]) > 0
+
+    return DagState(
+        approvers=union,
+        approval_count=union.sum(dim=-1, dtype=torch.int32),
+        **fields,
+    )

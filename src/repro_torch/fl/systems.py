@@ -5,7 +5,7 @@ iteration starts are Poisson arrivals ("one node on average ready per
 second"); an iteration is prepared (stages 1-3) at its start t0 and
 committed (stage 4) at t1 = t0 + h, with h from the Table-I
 ``LatencyModel``. The controller (Algorithm 1) checks every ``eval_every``
-commits. The gossip overlay and the baseline systems come in later slices.
+commits. The baseline systems come in a later slice.
 
 Draws. The reference draws each iteration's tip-selection uniforms from
 ``split(PRNGKey(seed * 100003 + i))[0]`` and each controller check's from
@@ -15,9 +15,15 @@ with stream "prepare" (index i) or "check" (index done). By default it is
 ``torch_uniform_draw``; the tests pass the reference's draws instead. Host
 numpy randomness (Poisson starts, node choice, node batches) is the
 reference's, bit for bit.
+
+``run_dagfl_gossip`` runs the same loop with each node against its own
+ledger replica, synced by anti-entropy gossip over an overlay
+(``repro_torch.net``); its edge draws go through ``edge_draw`` the same way
+(``repro_torch.net.gossip``).
 """
 from __future__ import annotations
 
+import dataclasses
 import heapq
 import time
 from collections import defaultdict
@@ -30,12 +36,15 @@ import torch
 
 from repro_torch.configs.base import DagFLConfig
 from repro_torch.core.anomaly import contribution_rates
-from repro_torch.core.consensus import make_dagfl_stages
+from repro_torch.core.consensus import commit_prepared, make_dagfl_stages
 from repro_torch.core.controller import Controller
 from repro_torch.device import resolve_device
 from repro_torch.fl.latency import LatencyModel
 from repro_torch.fl.nodes import SimNode
 from repro_torch.fl.tasks import make_epoch_train
+from repro_torch.net import gossip as gossip_lib
+from repro_torch.net import replica as replica_lib
+from repro_torch.net import topology as topo_lib
 
 UniformDraw = Callable[[str, int], torch.Tensor]
 
@@ -153,7 +162,12 @@ def _identity_train(params, batch):
 
 
 class _SharedLedger:
-    """One instantly-consistent global DAG — the paper's idealized runtime."""
+    """One instantly-consistent global DAG — the paper's idealized runtime.
+
+    The loop's backend hooks (``advance``, ``on_start``, ``fault_bias``,
+    ``observe``, ``extras``) are no-ops here, so ``run_dagfl`` is what it
+    was before the gossip backend shared the loop.
+    """
 
     name = "dagfl"
 
@@ -164,19 +178,38 @@ class _SharedLedger:
     def view(self, node_id):
         return self.dag
 
+    def advance(self, t):
+        pass
+
+    def on_start(self, node_id, t0, t1):
+        pass
+
+    def fault_bias(self):
+        return None
+
     def commit(self, node_id, t1, prepared):
         self.dag, self.bank = self._commit(self.dag, self.bank, node_id, t1, prepared)
 
     def union_dag(self):
         return self.dag
 
+    def observe(self, done, t1, union):
+        pass
+
+    def extras(self, union):
+        return {}
+
 
 def _run_dagfl_events(task, nodes, dcfg, sim, global_val, weighted, make_backend,
                       device, draw: Optional[UniformDraw]):
-    """The event loop: prepare (stages 1-3) at start time t0, commit
-    (stage 4) at completion t1 = t0 + h — in-flight iterations overlap, so
-    tips accumulate to the Eq.-4 equilibrium instead of being consumed
-    serially. The backend decides what ledger state a node sees."""
+    """The event loop shared by ``run_dagfl`` and ``run_dagfl_gossip``:
+    prepare (stages 1-3) at start time t0, commit (stage 4) at completion
+    t1 = t0 + h — in-flight iterations overlap, so tips accumulate to the
+    Eq.-4 equilibrium instead of being consumed serially. The backend
+    decides what ledger state a node sees (global vs its own replica) and
+    is advanced to each start and commit time (span "advance"); one copy of
+    the loop keeps the gossip system's ideal-wire limit equal to the shared
+    ledger."""
     dev = resolve_device(device)
     rng = np.random.default_rng(sim.seed)
     lat = LatencyModel.create(dcfg, sim.seed)
@@ -208,7 +241,7 @@ def _run_dagfl_events(task, nodes, dcfg, sim, global_val, weighted, make_backend
             "stage_ms": clock.totals(),
             "checks": state.checks,
             "checks_with_tip": state.aggregations,
-        }
+        } | backend.extras(union)
 
     if sim.iterations == 0:
         # no Poisson starts -> no commits: report the genesis state
@@ -230,6 +263,8 @@ def _run_dagfl_events(task, nodes, dcfg, sim, global_val, weighted, make_backend
 
     def _commit_one(t1, nid, prepared):
         nonlocal done
+        with clock("advance"):
+            backend.advance(t1)
         with clock("commit"):
             backend.commit(nid, f32(t1), prepared)
         done += 1
@@ -238,10 +273,12 @@ def _run_dagfl_events(task, nodes, dcfg, sim, global_val, weighted, make_backend
 
     def _check(t1):
         nonlocal state
-        state.dag, state.bank = backend.union_dag(), backend.bank
         with clock("check"):
+            union = backend.union_dag()
+            state.dag, state.bank = union, backend.bank
             state = ctrl.check(state, draw("check", done), float(t1) + 1e-3, gv)
-        curve.append((done, t1, state.best_accuracy))
+            curve.append((done, t1, state.best_accuracy))
+            backend.observe(done, t1, union)
 
     for i, t0 in enumerate(starts):
         while pending and pending[0][0] <= t0:
@@ -249,11 +286,17 @@ def _run_dagfl_events(task, nodes, dcfg, sim, global_val, weighted, make_backend
             _commit_one(t1, nid, prepared)
             if done % sim.eval_every == 0:
                 _check(t1)
+        with clock("advance"):
+            backend.advance(t0)
         node = nodes[rng.integers(0, N)]
         lazy = node.behavior == "lazy"
         t1 = t0 + lat.dagfl_iteration(node.node_id, lazy=lazy)
+        backend.on_start(node.node_id, t0, t1)
         fn = prep_lazy if lazy else prep_normal
         bias = bd_bias if node.behavior == "backdoor" else zero_bias
+        fb = backend.fault_bias()
+        if fb is not None:
+            bias = bias + fb
         with clock("prepare"):
             prepared = fn(
                 backend.view(node.node_id),
@@ -295,4 +338,145 @@ def run_dagfl(
     return _run_dagfl_events(
         task, nodes, dcfg, sim, global_val, weighted,
         lambda state, commit_fn: _SharedLedger(state, commit_fn), device, draw,
+    )
+
+
+# ---------------------------------------------------------------------------
+# DAG-FL over a gossip overlay (repro_torch.net)
+# ---------------------------------------------------------------------------
+
+
+def _gossip_commit(dag, bank, node_id, t_publish, prepared, seq):
+    """Stage-4 commit against a node's LOCAL replica, at a global row.
+
+    The same ``commit_prepared`` body as the shared ledger, addressed by
+    ``replica.global_row`` instead of the replica-local count, so every
+    replica stores this transaction at the same slot and ``dag.merge`` can
+    reconcile by identity.
+    """
+    slot, new_count = replica_lib.global_row(dag, seq)
+    return commit_prepared(dag, bank, node_id, t_publish, prepared, slot=slot,
+                           new_count=new_count)
+
+
+class _GossipLedger:
+    """Per-node replicas over a gossip overlay (``repro_torch.net``)."""
+
+    name = "dagfl_gossip"
+
+    def __init__(self, state, topology, gossip, partition, edge_draw=None):
+        self.net = gossip_lib.GossipNetwork(state.dag, state.bank, topology, gossip, partition,
+                                            edge_draw=edge_draw)
+        self.capacity = int(state.dag.publisher.shape[0])
+        self.seq = int(state.dag.count)       # genesis consumed sequence 0
+        # distinct approvals issued, counted on the device, read once in extras
+        self._issued = torch.zeros((), dtype=torch.int64, device=self.net.device)
+        self.divergence = []
+
+    @property
+    def bank(self):
+        return self.net.bank
+
+    def _replica(self, node_id):
+        # views into the stack: read and consumed before the next write
+        return replica_lib.read_replica(self.net.replicas, node_id)
+
+    def view(self, node_id):
+        return self._replica(node_id)
+
+    def advance(self, t):
+        self.net.advance(t)
+
+    def on_start(self, node_id, t0, t1):
+        pass
+
+    def fault_bias(self):
+        return None
+
+    def commit(self, node_id, t1, prepared):
+        dag_i = self._replica(node_id)
+        # a credit is "issued" only when this node was not already an
+        # approver of the row in its own replica — publish_at's predicate,
+        # so in the ideal-wire limit issued == what survives the union
+        rows = prepared.chosen_rows
+        credited = dag_i.approvers[rows.clamp(min=0).long(), node_id]
+        self._issued += ((rows >= 0) & ~credited).sum()
+        dag_i, bank = _gossip_commit(dag_i, self.net.bank, node_id, t1, prepared, self.seq)
+        self.net.write(node_id, dag_i, bank)
+        self.seq += 1
+
+    def union_dag(self):
+        return self.net.union()
+
+    def observe(self, done, t1, union):
+        self.divergence.append((done, float(t1), int(self.net.missing_rows(union).max())))
+
+    def extras(self, union):
+        return {
+            # a copy: the replicas are written in place
+            "replicas": self.net.replicas._replace(
+                dags=replica_lib.snapshot(self.net.replicas.dags)),
+            "sync_rounds": self.net.rounds_run,
+            "device_calls": self.net.device_calls,
+            "dispatch_counts": dict(self.net.dispatch_counts),
+            "events_processed": self.net.events_processed,
+            "synced_final": self.net.synced(),
+            "missing_rows_final": self.net.missing_rows(union),
+            "approvals_issued": int(self._issued),
+            "approvals_in_union": int((union.approval_count * (union.publisher >= 0)).sum()),
+            "divergence_curve": np.asarray(self.divergence, dtype=np.float64),
+        }
+
+
+def run_dagfl_gossip(
+    task,
+    nodes: List[SimNode],
+    dcfg: DagFLConfig,
+    sim: SimConfig,
+    global_val: Dict[str, np.ndarray],
+    weighted: bool = False,
+    topology: Optional[topo_lib.Topology] = None,
+    gossip: Optional[gossip_lib.GossipConfig] = None,
+    partition: Optional[gossip_lib.PartitionSchedule] = None,
+    mesh=None,
+    bank_gossip=None,
+    engine: Optional[str] = None,
+    obs=None,
+    faults=None,
+    serve=None,
+    device="cuda",
+    draw: Optional[UniformDraw] = None,
+    edge_draw: Optional[gossip_lib.EdgeDraw] = None,
+) -> SimResult:
+    """DAG-FL where each node runs Algorithm 2 against its own DAG replica.
+
+    ``prepare`` (stages 1-3) reads the node's LOCAL view at iteration start;
+    ``commit`` (stage 4) publishes locally; anti-entropy sync ticks are
+    interleaved into the event timeline (``GossipNetwork.advance``). The
+    external agent E evaluates the union of all replicas — with an ideal
+    wire (``sync_period <= 0``, drop 0, connected overlay) this is exactly
+    ``run_dagfl``. Defaults: ``full(len(nodes))``, ``GossipConfig(
+    sync_period=1.0, seed=sim.seed)`` (ticks engine, fused round).
+
+    ``draw`` and ``edge_draw`` replace the tip-selection and edge draws
+    (``run_dagfl``, ``repro_torch.net.gossip``). ``mesh``, ``bank_gossip``,
+    ``engine="events"``, ``obs``, ``faults`` and ``serve`` are not ported
+    yet and raise ``NotImplementedError``.
+    """
+    gossip_lib._unported(mesh=(mesh, "ROADMAP A.12"), bank_gossip=(bank_gossip, "ROADMAP A.6"),
+                         obs=(obs, "ROADMAP A.9"), faults=(faults, "ROADMAP A.10"),
+                         serve=(serve, "ROADMAP A.11"))
+    if topology is None:
+        topology = topo_lib.full(len(nodes))
+    if gossip is None:
+        gossip = gossip_lib.GossipConfig(sync_period=1.0, seed=sim.seed)
+    if engine is not None:
+        gossip = dataclasses.replace(gossip, engine=engine)
+    if gossip.engine == "events":
+        raise NotImplementedError("engine='events' is not ported yet (ROADMAP A.8)")
+    return _run_dagfl_events(
+        task, nodes, dcfg, sim, global_val, weighted,
+        lambda state, commit_fn: _GossipLedger(state, topology, gossip, partition,
+                                               edge_draw=edge_draw),
+        device, draw,
     )

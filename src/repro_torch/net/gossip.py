@@ -1,0 +1,392 @@
+"""Anti-entropy gossip over the overlay: device-resident, tick-batched sync.
+
+A sync tick folds every node's active neighbours into its local replica with
+the ``dag.merge`` row rule. Three interchangeable round implementations,
+under the reference's names:
+
+  ``impl="fused"``  the fast path: per-row winner selection over ALL senders
+                    in one masked reduction (``repro_torch.kernels.
+                    gossip_merge.gossip_winner``: the CUDA kernel on a card,
+                    its plain version on the CPU), then one payload gather
+                    (``dag.merge_select`` with the dense mask);
+  ``impl="scan"``   the sequential fold of two-replica ``dag.merge``s over
+                    senders in index order: the bitwise oracle;
+  ``impl="lax"``    the neighbour-list form (``gossip_winner_nbr`` over each
+                    receiver's candidate list, plain PyTorch).
+
+Per-edge behaviour, as in the reference:
+
+  message loss   each directed message is dropped i.i.d. with the link's
+                 drop probability (``Topology.drop``);
+  link latency   a link with latency l fires only every
+                 ``ceil(l / sync_period)`` ticks;
+  partitions     a ``PartitionSchedule`` suppresses cross-component edges
+                 for t in [t_start, t_end), then heals.
+
+Edge draws. The reference's n-th executed round draws ``uniform(sub_n,
+(N, N))`` with ``key_{n+1}, sub_n = split(key_n)`` and ``key_0 =
+PRNGKey(cfg.seed)``; PyTorch cannot reproduce threefry, so every round's
+draw goes through one function, ``edge_draw(round_index) -> (N, N) f32`` in
+[0, 1), where ``round_index`` counts executed rounds (fast-forwarded ticks
+draw nothing). The default (``torch_edge_draw``) is a ``torch.Generator`` on
+the device seeded with ``cfg.seed``; the tests pass the reference's draws.
+
+Only the ticks engine without bank gossip, telemetry, faults, serving or a
+mesh is ported; ``GossipNetwork`` raises ``NotImplementedError`` naming the
+ROADMAP item for each of those options.
+"""
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import dag as dag_lib
+from repro_torch.core.dag import DagState
+from repro_torch.kernels import gossip_merge as gossip_kernel
+from repro_torch.net import replica as replica_lib
+from repro_torch.net.topology import Topology, neighbor_table, partition_matrix
+
+EdgeDraw = Callable[[int], torch.Tensor]
+
+
+@dataclass(frozen=True)
+class PartitionSchedule:
+    """Split the overlay into components for [t_start, t_end), then heal.
+
+    ``assignment`` is an (N,) array of component labels; while active, only
+    edges within a component deliver.
+    """
+
+    assignment: np.ndarray
+    t_start: float
+    t_end: float
+
+    def active(self, t: float) -> bool:
+        return self.t_start <= t < self.t_end
+
+
+@dataclass(frozen=True)
+class GossipConfig:
+    """Anti-entropy knobs.
+
+    ``sync_period <= 0`` means an ideal wire: every ``advance`` runs ticks
+    until the replicas reach fixpoint — the shared-ledger limit.
+    ``max_ticks_per_advance`` bounds work when one advance window spans many
+    periods; the ticks past it are fast-forwarded: no round runs for them
+    and no edge draw is made.
+    ``impl``: "fused", "scan" or "lax" (see the module docstring).
+    ``engine``: only "ticks" is ported; "events" raises (ROADMAP A.8).
+    """
+
+    sync_period: float = 1.0
+    seed: int = 0
+    max_ticks_per_advance: int = 64
+    impl: str = "fused"
+    engine: str = "ticks"
+
+
+def torch_edge_draw(seed: int, num_nodes: int, device) -> EdgeDraw:
+    """(N, N) uniforms in [0, 1) from one ``torch.Generator`` on ``device``,
+    consumed in round order."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def draw(round_index: int) -> torch.Tensor:
+        return torch.rand((num_nodes, num_nodes), generator=gen, device=device)
+
+    return draw
+
+
+# ---------------------------------------------------------------------------
+# Round bodies
+# ---------------------------------------------------------------------------
+
+
+def trees_equal(a: DagState, b: DagState) -> torch.Tensor:
+    """() bool tensor — leaf-wise exact equality of two ledgers."""
+    return torch.stack([(x == y).all() for x, y in zip(a, b)]).all()
+
+
+def _sample_edges(uniform, tick: int, part_mask, adj, drop, stride) -> torch.Tensor:
+    """(N, N) bool active-edge mask for one tick; ``uniform`` is its draw."""
+    live = adj & (torch.remainder(tick, stride) == 0) & part_mask
+    return live & (uniform >= drop)
+
+
+@functools.lru_cache(maxsize=64)
+def _neighbor_table_cached(mask_bytes: bytes, r: int):
+    m = np.frombuffer(mask_bytes, bool).reshape(r, r)
+    return neighbor_table(m)
+
+
+def _round_scan(dags: DagState, edge_active: torch.Tensor) -> DagState:
+    """The sequential fold: every receiver merges sender 0, 1, ... in order,
+    keeping the merge only where its edge is active. The receivers go
+    together: one ``dag.merge`` per sender, broadcast over the stack."""
+    out = dags
+    for j in range(dags.publisher.shape[0]):
+        merged = dag_lib.merge(out, DagState(*(x[j] for x in dags)))
+        act = edge_active[:, j]
+        out = DagState(*(
+            torch.where(act.reshape(act.shape + (1,) * (m.dim() - 1)), m, c)
+            for m, c in zip(merged, out)
+        ))
+    return out
+
+
+def _round_fused(dags: DagState, edge_active: torch.Tensor, nbr_idx: torch.Tensor,
+                 nbr_valid: torch.Tensor, impl: str) -> DagState:
+    """One winner reduction + one payload gather per tick.
+
+    "fused" runs the dense reduction over the whole sender axis (the kernel
+    on a card); "lax" gathers each receiver's candidate list and reduces
+    over the max degree.
+    """
+    r = dags.publisher.shape[0]
+    dev = dags.publisher.device
+    if impl == "fused":
+        # the receiver is a candidate: merge_select's watermarks read it too
+        mask = edge_active | torch.eye(r, dtype=torch.bool, device=dev)
+        src, _ = gossip_kernel.gossip_winner(dags.publish_time, dags.publisher,
+                                             dags.approval_count, mask)
+        return dag_lib.merge_select(dags, src, mask=mask)
+    if impl != "lax":
+        raise ValueError(f"unknown gossip round impl: {impl!r}")
+    rows = torch.arange(r, dtype=torch.int32, device=dev)
+    act = torch.gather(edge_active, 1, nbr_idx.long()) | (nbr_idx == rows[:, None])
+    act = act & nbr_valid
+    src, _ = gossip_kernel.gossip_winner_nbr(dags.publish_time, dags.publisher,
+                                             dags.approval_count, nbr_idx, act)
+    return dag_lib.merge_select(dags, src, nbr_idx=nbr_idx, nbr_act=act)
+
+
+def _apply_round(dags: DagState, edge_active: torch.Tensor, nbr_idx, nbr_valid,
+                 impl: str) -> DagState:
+    if impl == "scan":
+        return _round_scan(dags, edge_active)
+    return _round_fused(dags, edge_active, nbr_idx, nbr_valid, impl)
+
+
+def make_gossip_round(impl: str = "fused", mesh=None):
+    """(dags, edge_active) -> dags anti-entropy round.
+
+    ``edge_active[i, j]``: receiver i hears sender j this tick. The "lax"
+    impl derives its candidate table from the concrete mask (cached);
+    ``GossipNetwork`` precomputes it from the static adjacency instead.
+    """
+    if mesh is not None:
+        raise NotImplementedError("the mesh-sharded round is not ported yet (ROADMAP A.12)")
+
+    def round_fn(dags: DagState, edge_active: torch.Tensor) -> DagState:
+        nbr_idx = nbr_valid = None
+        if impl == "lax":
+            m = edge_active.cpu().numpy().astype(bool)
+            idx, valid = _neighbor_table_cached(m.tobytes(), m.shape[0])
+            dev = edge_active.device
+            nbr_idx, nbr_valid = torch.from_numpy(idx).to(dev), torch.from_numpy(valid).to(dev)
+        return _apply_round(dags, edge_active, nbr_idx, nbr_valid, impl)
+
+    return round_fn
+
+
+def stride_matrix(top: Topology, sync_period: float, use_strides: bool = True) -> np.ndarray:
+    """(N, N) int32 tick stride per link: a link with latency l fires every
+    ``ceil(l / sync_period)`` ticks. ``use_strides=False`` (the ideal wire,
+    ``sync_period <= 0``) delivers on every tick regardless of latency.
+    Clipped to 2**30 so pathological latency/period ratios stay int32-safe."""
+    n = top.num_nodes
+    if not use_strides:
+        return np.ones((n, n), np.int32)
+    period = max(float(sync_period), 1e-9)
+    finite_lat = np.where(np.isfinite(top.latency), top.latency, 0.0)
+    stride = np.where(top.adjacency, np.maximum(1.0, np.ceil(finite_lat / period)), 1.0)
+    return np.minimum(stride, 2.0 ** 30).astype(np.int32)
+
+
+def _unported(**options) -> None:
+    for name, (value, item) in options.items():
+        if value is not None:
+            raise NotImplementedError(f"{name} is not ported yet ({item})")
+
+
+class GossipNetwork:
+    """The overlay on the host side: replicas, the tick clock, schedule batching.
+
+    The replicas live on the device of ``dag``. ``edge_draw`` replaces the
+    default edge draws (see the module docstring).
+    """
+
+    def __init__(
+        self,
+        dag: DagState,
+        bank: Any,
+        top: Topology,
+        cfg: GossipConfig = GossipConfig(),
+        partition: Optional[PartitionSchedule] = None,
+        mesh=None,
+        bank_cfg=None,
+        obs_cfg=None,
+        faults_cfg=None,
+        serve_cfg=None,
+        edge_draw: Optional[EdgeDraw] = None,
+    ):
+        _unported(mesh=(mesh, "ROADMAP A.12"), bank_cfg=(bank_cfg, "ROADMAP A.6"),
+                  obs_cfg=(obs_cfg, "ROADMAP A.9"), faults_cfg=(faults_cfg, "ROADMAP A.10"),
+                  serve_cfg=(serve_cfg, "ROADMAP A.11"))
+        if cfg.engine == "events":
+            raise NotImplementedError("engine='events' is not ported yet (ROADMAP A.8)")
+        if cfg.engine != "ticks":
+            raise ValueError(f"unknown gossip engine: {cfg.engine!r}")
+        if cfg.impl not in ("fused", "scan", "lax"):
+            raise ValueError(f"unknown gossip round impl: {cfg.impl!r}")
+        n = top.num_nodes
+        dev = dag.publisher.device
+        self.topology = top
+        self.cfg = cfg
+        self.partition = partition
+        self.device = dev
+        self.replicas = replica_lib.init_replicas(dag, bank, n)
+        stride = stride_matrix(top, cfg.sync_period, use_strides=cfg.sync_period > 0)
+        self._max_stride = int(stride[top.adjacency].max()) if top.adjacency.any() else 1
+        self._adj = torch.from_numpy(np.asarray(top.adjacency, bool)).to(dev)
+        self._drop = torch.from_numpy(np.asarray(top.drop, np.float32)).to(dev)
+        self._stride = torch.from_numpy(stride).to(dev)
+        nbr_idx, nbr_valid = neighbor_table(top.adjacency)
+        self._nbr_idx = torch.from_numpy(nbr_idx).to(dev)
+        self._nbr_valid = torch.from_numpy(nbr_valid).to(dev)
+        self._all_mask = torch.ones((n, n), dtype=torch.bool, device=dev)
+        self._part_mask = (
+            torch.from_numpy(partition_matrix(partition.assignment)).to(dev)
+            if partition is not None else self._all_mask
+        )
+        self._edge_draw = edge_draw if edge_draw is not None else torch_edge_draw(cfg.seed, n, dev)
+        self.tick = 0                # global tick index (drives strides)
+        self.rounds_run = 0          # ticks actually executed (= edge draws made)
+        self.device_calls = 0        # device entry points issued (_dispatch)
+        self.dispatch_counts = {}    # per-entry-point breakdown
+        self.events_processed = 0    # event batches: always 0 on the ticks engine
+        period = cfg.sync_period
+        self._next_tick_t = period if period > 0 else 0.0
+
+    # --- replica access ----------------------------------------------------
+
+    @property
+    def bank(self):
+        return self.replicas.bank
+
+    def read(self, i) -> DagState:
+        """A copy of node i's replica: later writes and rounds leave it as it is."""
+        return replica_lib.snapshot(replica_lib.read_replica(self.replicas, i))
+
+    def write(self, i, dag: DagState, bank=None) -> None:
+        """Write node i's replica in place (``replica.write_replica``)."""
+        self.replicas = replica_lib.write_replica(self.replicas, i, dag)
+        if bank is not None:
+            self.replicas = self.replicas._replace(bank=bank)
+
+    def read_view(self, i) -> DagState:
+        """Node i's usable view; without bank gossip exactly ``read``."""
+        return self.read(i)
+
+    def union(self) -> DagState:
+        return replica_lib.merge_all(self.replicas.dags)
+
+    def synced(self) -> bool:
+        """Row-identical replicas (one host read)."""
+        return bool(replica_lib.replicas_synced(self.replicas.dags))
+
+    def missing_rows(self, union: Optional[DagState] = None) -> np.ndarray:
+        """(N,) rows each replica lacks vs the union view (0 = converged).
+        Pass a precomputed ``union()`` to avoid re-folding the replicas."""
+        return replica_lib.missing_vs_union(self.replicas.dags, union).cpu().numpy()
+
+    # --- the clock ---------------------------------------------------------
+
+    def _mask_at(self, t: float) -> torch.Tensor:
+        if self.partition is not None and self.partition.active(t):
+            return self._part_mask
+        return self._all_mask
+
+    def _dispatch(self, label: str, fn, *args):
+        """Issue one state-advancing entry point through the counting funnel:
+        ``device_calls`` counts them all, ``dispatch_counts`` by label."""
+        self.device_calls += 1
+        self.dispatch_counts[label] = self.dispatch_counts.get(label, 0) + 1
+        return fn(*args)
+
+    def _round(self, dags: DagState, tick: int, part_mask: torch.Tensor) -> DagState:
+        """One executed round: the next edge draw, the sampled mask, the merge."""
+        uniform = self._edge_draw(self.rounds_run)
+        self.rounds_run += 1
+        edges = _sample_edges(uniform, tick, part_mask, self._adj, self._drop, self._stride)
+        return _apply_round(dags, edges, self._nbr_idx, self._nbr_valid, self.cfg.impl)
+
+    def _advance_window(self, ticks, part_active) -> None:
+        dags = self.replicas.dags
+        for tick, pact in zip(ticks, part_active):
+            dags = self._round(dags, tick, self._part_mask if pact else self._all_mask)
+        self.replicas = self.replicas._replace(dags=dags)
+
+    def _run_ticks(self, ticks, part_active) -> None:
+        """Execute a batch of sync ticks as one entry point."""
+        self._dispatch("advance", self._advance_window, ticks, part_active)
+        self.tick += len(ticks)
+
+    def _tick_once(self, t: float) -> None:
+        """One sync tick at simulation time ``t`` (a batch of one)."""
+        pact = self.partition is not None and self.partition.active(t)
+        self._run_ticks([self.tick], [pact])
+
+    def advance(self, t: float) -> None:
+        """Run every sync tick scheduled at or before simulation time ``t``
+        as one batched entry point."""
+        if self.cfg.sync_period <= 0:
+            self.converge(at_time=t)
+            return
+        ticks, pacts = [], []
+        nt = self._next_tick_t
+        while nt <= t and len(ticks) < self.cfg.max_ticks_per_advance:
+            ticks.append(self.tick + len(ticks))
+            pacts.append(self.partition is not None and self.partition.active(nt))
+            nt += self.cfg.sync_period
+        if ticks:
+            self._run_ticks(ticks, pacts)
+        self._next_tick_t = nt
+        if self._next_tick_t <= t:     # window overflowed the cap: fast-forward
+            periods_behind = int((t - self._next_tick_t) // self.cfg.sync_period) + 1
+            self.tick += periods_behind
+            self._next_tick_t += periods_behind * self.cfg.sync_period
+
+    def _converge_loop(self, part_mask: torch.Tensor, limit: int, stall_limit: int) -> bool:
+        dags = self.replicas.dags
+        stalled = done = 0
+        while (done < limit and stalled < stall_limit
+               and not bool(replica_lib.replicas_synced(dags))):
+            new = self._round(dags, self.tick, part_mask)
+            stalled = stalled + 1 if bool(trees_equal(new, dags)) else 0
+            dags = new
+            self.tick += 1
+            done += 1
+        self.replicas = self.replicas._replace(dags=dags)
+        return bool(replica_lib.replicas_synced(dags))
+
+    def converge(self, at_time: float = float("inf")) -> bool:
+        """Tick until the replicas reach fixpoint (ideal-wire flush / heal).
+
+        Bounded by ``num_nodes * max_stride`` ticks (stride capped at 64); a
+        full stride cycle of unchanged state is a fixpoint (partition active
+        or overlay disconnected). Returns whether full sync was reached.
+
+        The reference runs this as one ``lax.while_loop`` with its predicate
+        on the device; here it is a Python loop whose predicate costs two
+        host reads per tick (synced, unchanged). Keeping the loop on the
+        device (CUDA graphs) is later work.
+        """
+        limit = self.topology.num_nodes * min(self._max_stride, 64)
+        stall_limit = min(self._max_stride, 64)
+        return self._dispatch("converge", self._converge_loop, self._mask_at(at_time),
+                              limit, stall_limit)

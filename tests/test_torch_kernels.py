@@ -1,4 +1,6 @@
-"""The port's Eq.-(1) kernel module against the reference.
+"""The port's kernel modules against the reference.
+
+Eq. (1), ``kernels/fedavg.py``:
 
 On the CPU the wrapper takes its plain version, which is held against the
 reference's oracle ``ref.fedavg_ref``, its Pallas kernel (interpret mode,
@@ -12,6 +14,11 @@ differ only in order and fma, so their rounding error scales with the terms,
 not with a result that may cancel to near 0); bf16 one unit in the last place
 of the result on top of that (both sides round their f32 sum to bf16 once,
 and two sums a hair apart may round to neighbouring values).
+
+The gossip-merge winner, ``kernels/gossip_merge.py``: its outputs are
+indices and counters, so the kernel must equal the plain version bitwise
+(``test_gossip_winner_kernel_on_card``); the plain version is held against
+the reference in ``tests/test_torch_gossip.py``.
 """
 import numpy as np
 import pytest
@@ -21,6 +28,7 @@ from repro_torch.core import aggregation as t_agg
 from repro_torch.core import bank as t_bank
 from repro_torch.kernels import cuda_build
 from repro_torch.kernels import fedavg as t_fedavg
+from repro_torch.kernels import gossip_merge as t_gm
 
 
 @pytest.fixture(scope="module")
@@ -197,3 +205,64 @@ def test_fedavg_kernel_on_card(cuda, dtype, k, n, padded):
                   scale.cpu().numpy())
     with pytest.raises(TypeError):
         t_fedavg.fedavg_gather(rows, slots.long(), w)
+
+
+def gossip_state(gen, r, cap, device):
+    """Winner inputs with key ties, equal times under other publishers,
+    rows nobody holds, and negative, zero and positive counters."""
+    kw = dict(generator=gen, device=device)
+    pub = torch.randint(-1, 4, (r, cap), dtype=torch.int32, **kw)
+    pub[:, ::37] = -1
+    t = torch.randint(0, 4, (r, cap), **kw).float() * 0.5
+    ac = torch.randint(-1, 6, (r, cap), dtype=torch.int32, **kw)
+    return t, pub, ac
+
+
+def test_gossip_wrapper_launches_nothing_off_the_card():
+    gen = torch.Generator().manual_seed(0)
+    t, pub, ac = gossip_state(gen, 5, 7, "cpu")
+    before = cuda_build.LAUNCHES["gossip_winner"]
+    src, acc = t_gm.gossip_winner(t, pub, ac, torch.ones((2, 5), dtype=torch.uint8), row_offset=3)
+    assert cuda_build.LAUNCHES["gossip_winner"] == before
+    assert src.shape == acc.shape == (2, 7) and src.dtype == acc.dtype == torch.int32
+    assert bool(((src >= 0) & (src < 5)).all())
+    meta = torch.empty((5, 7), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        t_gm.gossip_winner(meta, meta.int(), meta.int(), torch.ones((5, 5), device="meta"))
+    source = cuda_build.CSRC / "gossip_merge.cu"
+    cmd = cuda_build.build_command("nvcc", source, "x.so")
+    assert source.exists() and "arch=compute_90a,code=sm_90a" in cmd and cmd[-1] == str(source)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,rr,cap,offset,density", [
+    (100, 100, 512, None, 0.5),     # a round at the main path's shape
+    (100, 1, 512, None, 1.0),       # the union fold (merge_all)
+    (100, 25, 512, 50, 0.5),        # a receiver block
+    (100, 100, 1000, None, 0.5),    # cap not a multiple of the block
+    (5000, 3, 129, 4990, 0.3),      # more senders than one shared-memory chunk
+    (7, 7, 5, None, 0.0),           # nobody hears anybody: every receiver keeps its rows
+])
+def test_gossip_winner_kernel_on_card(cuda, r, rr, cap, offset, density):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(r + cap)
+    t, pub, ac = gossip_state(gen, r, cap, cuda)
+    mask = torch.rand((rr, r), generator=gen, device=cuda) < density
+    before = cuda_build.LAUNCHES["gossip_winner"]
+    got = t_gm.gossip_winner(t, pub, ac, mask, row_offset=offset)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["gossip_winner"] == before + 1
+    row_ids = None if offset is None else offset + torch.arange(rr, device=cuda)
+    want = t_gm.gossip_winner_plain(t, pub, ac, mask, row_ids=row_ids)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    # the mask may be bytes too, and a NaN time wins nothing
+    t[0, :] = float("nan")
+    got = t_gm.gossip_winner(t, pub, ac, mask.to(torch.uint8), row_offset=offset)
+    want = t_gm.gossip_winner_plain(t, pub, ac, mask, row_ids=row_ids)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    with pytest.raises(TypeError):
+        t_gm.gossip_winner(t, pub.long(), ac, mask)
+    with pytest.raises(ValueError, match="row_offset"):
+        t_gm.gossip_winner(t, pub, ac, mask, row_offset=r - rr + 1)
