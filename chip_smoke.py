@@ -16,12 +16,17 @@ builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (into
    a 512-slot bank — and checks that it went through every kernel; then its
    second half, ``run_dagfl_gossip`` (each node on its own ledger replica,
    synced by anti-entropy gossip over the full overlay) at the same size;
-   each path under ``torch.profiler`` too, shorter;
-3. runs a small ``run_dagfl`` and a small ``run_dagfl_gossip`` (a lossy ring
-   with a partition) on the card and on the CPU with the same draws and
-   checks that they agree.
+   then (2c) the priced bank, ``run_dagfl_gossip(bank_gossip=...)``, once
+   with unlimited bandwidth (which must equal the bankless run) and once at
+   Table-I pricing (100 Mbit/s links, 7 MB models); each path under
+   ``torch.profiler`` too, shorter;
+3. runs a small ``run_dagfl``, a small ``run_dagfl_gossip`` (a lossy ring
+   with a partition) and a small banked one (the same ring, starved) on the
+   card and on the CPU with the same draws and checks that they agree.
 
-Phase 1 of the merge-winner kernel runs last, after phase 3.
+Phase 1 of the merge-winner and chunk-dedup kernels runs last, after phase
+3; the digest check (bank table against one payload, bitwise) runs before
+phase 2c.
 
 Prints one JSON line of kernel numbers, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, on
@@ -48,6 +53,8 @@ PEAK_F32_FLOPS = 67e12
 MAIN_P = 1_663_370          # CNNTask() parameters: the paper's full-width CNN
 MAIN_SLOTS = 512            # DagFLConfig.capacity
 MAIN_NODES = 100            # DagFLConfig.num_nodes: the gossip path's replicas
+MAIN_CHUNKS = 4             # BankGossipConfig.chunks_per_slot
+TABLE1_SLOT_BYTES = 7e6     # Table I: phi = 7 MB per model
 # the winner's least work per admitted (receiver, sender, row) candidate:
 # occupancy, time >, time ==, publisher >, publisher ==, counter max
 GOSSIP_OPS_PER_CHECK = 6
@@ -356,13 +363,169 @@ def phase_gossip_main_path(cuda_build):
         "approvals_issued": ex["approvals_issued"], "approvals_in_union": ex["approvals_in_union"],
         "accs": [float(a) for a in res.accs], "avg_latency_s": res.avg_latency,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+    }, res_without_bank(res)
+
+
+def res_without_bank(res):
+    """The result with its replicas' 3.4 GB model bank dropped: what a
+    later comparison needs, without holding the bank on the card."""
+    res.extras["replicas"] = res.extras["replicas"]._replace(bank=None)
+    return res
+
+
+LEDGER_COLUMNS = ("publisher", "publish_time", "approvals", "approvers", "approval_count",
+                  "model_slot", "count", "published_per_node", "contributing_m0",
+                  "contributing_m1")
+
+
+def check_same_run(what, a, b):
+    """Two runs of the gossip path agree: curve, latency, and the union's
+    and every replica's ledger columns (integer columns and times)."""
+    check(a.avg_latency == b.avg_latency, f"{what}: avg latency differs")
+    for name in ("iters", "times", "accs"):
+        check(np.array_equal(getattr(a, name), getattr(b, name)),
+              f"{what}: {name} differ: {getattr(a, name)} vs {getattr(b, name)}")
+    for part, da, db in (("union", a.extras["dag"], b.extras["dag"]),
+                         ("replicas", a.extras["replicas"].dags, b.extras["replicas"].dags)):
+        for name in LEDGER_COLUMNS:
+            check(torch.equal(getattr(da, name).cpu(), getattr(db, name).cpu()),
+                  f"{what}: {part} {name} differs")
+    for key in ("sync_rounds", "approvals_issued", "approvals_in_union"):
+        check(a.extras[key] == b.extras[key],
+              f"{what}: {key} differs: {a.extras[key]} vs {b.extras[key]}")
+
+
+def phase_digests():
+    """The two digest paths agree bitwise on the card: the store's table
+    (``bank_digests``, slot by slot) against one payload (``chunk_digests``
+    of ``bank_read``), for the genesis slots and for a slot re-committed
+    with identical content (a lazy republish, which must dedup)."""
+    from repro_torch.core.bank import bank_read, bank_write, init_bank
+    from repro_torch.fl.tasks import CNNTask
+    from repro_torch.net import bank as bank_lib
+
+    params0 = CNNTask().init(0, "cuda")
+    bank = init_bank(params0, 8)                    # genesis: slot 0 the model, the rest zeros
+    bank_write(bank, 0, params0)
+    bank_write(bank, 1, CNNTask().init(1, "cuda"))
+    table = bank_lib.bank_digests(bank, MAIN_CHUNKS)
+    for slot in range(8):
+        check(torch.equal(table[slot], bank_lib.chunk_digests(bank_read(bank, slot), MAIN_CHUNKS)),
+              f"digests: slot {slot}: the bank table differs from the payload's digests")
+    have = torch.ones((MAIN_NODES, 8, MAIN_CHUNKS), dtype=torch.bool, device="cuda")
+    _, digest = bank_lib.commit_chunks(have, table, bank_read(bank, 0), 5, 0)
+    check(torch.equal(digest[5], table[0]), "digests: an identical re-commit got other digests")
+    check(bool(torch.isfinite(table).all()) and not torch.equal(table[0], table[1]),
+          "digests: non-finite, or two different models share digests")
+    return {"slots": 8, "chunks": MAIN_CHUNKS, "params": MAIN_P}
+
+
+def bank_runs():
+    """The two wires of the bank path: unlimited bandwidth, and Table-I
+    pricing (B = 100 Mbit/s per link, phi = 7 MB: 12.5 MB a tick, 7 whole
+    1.75 MB chunks)."""
+    from repro_torch.configs.dagfl_paper_tasks import CNN_TASK
+    from repro_torch.net.bank import BankGossipConfig
+    from repro_torch.net.topology import full
+
+    dcfg = CNN_TASK.dagfl
+    return {
+        "unlimited": dict(topology=full(dcfg.num_nodes),
+                          bank_gossip=BankGossipConfig(chunks_per_slot=MAIN_CHUNKS)),
+        "table1": dict(topology=full(dcfg.num_nodes, bandwidth=dcfg.bandwidth),
+                       bank_gossip=BankGossipConfig(chunks_per_slot=MAIN_CHUNKS,
+                                                    slot_bytes=TABLE1_SLOT_BYTES)),
     }
 
 
-def phase_profile(system="run_dagfl"):
+def phase_bank_main_path(cuda_build, bankless):
+    """The slice's path: ``run_dagfl_gossip(bank_gossip=...)`` at full
+    width on each wire of ``bank_runs``; the unlimited one must be the
+    bankless run of phase 2 bitwise."""
+    return {name: bank_run(cuda_build, name, options, bankless)
+            for name, options in bank_runs().items()}
+
+
+def bank_run(cuda_build, name, options, bankless):
+    """One full-width bank run, checked; returns its summary. Nothing of the
+    run outlives the call, so the next run's peak memory is its own."""
+    from repro_torch.configs.dagfl_paper_tasks import CNN_TASK
+    from repro_torch.fl.systems import SimConfig, run_dagfl_gossip
+    from repro_torch.fl.tasks import CNNTask
+
+    dcfg = CNN_TASK.dagfl
+    nodes, gval = paper_setup(dcfg.num_nodes, 28)
+    sim = SimConfig(iterations=ITERATIONS, eval_every=EVAL_EVERY, minibatch=dcfg.minibatch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.LAUNCHES.clear()
+    t = time.perf_counter()
+    res = run_dagfl_gossip(CNNTask(), nodes, dcfg, sim, gval, device="cuda", **options)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t
+    launches = dict(cuda_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    ex = res.extras
+    bstate = ex["replicas"].bank_state
+    check(bstate.have.is_cuda and bstate.have.shape == (MAIN_NODES, MAIN_SLOTS, MAIN_CHUNKS),
+          f"bank {name}: presence {tuple(bstate.have.shape)} on {bstate.have.device}")
+    check(int(ex["dag"].count) == ITERATIONS + 1, f"bank {name}: union count")
+    check(len(res.accs) > 0 and bool(np.isfinite(res.accs).all()),
+          f"bank {name}: accuracies {res.accs}")
+    params = res.final_params
+    check(sum(p.numel() for p in params.values()) == MAIN_P, "CNNTask() is not full width")
+    check(all(bool(torch.isfinite(p).all()) for p in params.values()),
+          f"bank {name}: non-finite params")
+    lag = ex["bank_lag_curve"]
+    check(lag.shape == (ex["checks"], 3) and bool(np.isfinite(lag).all()),
+          f"bank {name}: lag curve {lag.shape}")
+    check(ex["bank_bytes_sent"] > 0, f"bank {name}: no payload byte was sent")
+    # one dedup per executed round, per prepare (the gated view), per
+    # controller check (the lag sample), and two in extras (the final
+    # missing count and the bank-aware synced)
+    expected = ex["sync_rounds"] + ITERATIONS + ex["checks"] + 2
+    check(launches.get("chunk_dedup", 0) == expected,
+          f"bank {name}: chunk_dedup launched {launches.get('chunk_dedup', 0)} times, "
+          f"expected {expected} ({ex['sync_rounds']} rounds + {ITERATIONS} prepares + "
+          f"{ex['checks']} checks + 2)")
+    expected = ex["sync_rounds"] + ex["checks"] + 1
+    check(launches.get("gossip_winner", 0) == expected,
+          f"bank {name}: gossip_winner launched {launches.get('gossip_winner', 0)} times, "
+          f"expected {expected}")
+    expected = ITERATIONS + ex["checks_with_tip"]
+    check(launches.get("fedavg_gather", 0) == expected,
+          f"bank {name}: fedavg_gather launched {launches.get('fedavg_gather', 0)} times, "
+          f"expected {expected}")
+    if name == "unlimited":
+        check(int(ex["bank_missing_final"].max()) == 0 and lag[:, 2].max() == 0,
+              "bank unlimited: a payload lagged its row")
+        check_same_run("bank unlimited vs bankless", res, bankless)
+    return {
+        "iterations": ITERATIONS, "nodes": dcfg.num_nodes, "capacity": dcfg.capacity,
+        "params": MAIN_P, "chunks_per_slot": MAIN_CHUNKS,
+        "slot_bytes": options["bank_gossip"].slot_bytes,
+        "link_bytes_per_tick": float(options["topology"].bandwidth[0, 1]) / 8.0,
+        "run_s": wall_s, "ms_per_iteration": 1e3 * wall_s / ITERATIONS,
+        "stage_ms": ex["stage_ms"], "checks": ex["checks"],
+        "sync_rounds": ex["sync_rounds"], "dispatch_counts": ex["dispatch_counts"],
+        "launches": launches, "bank_bytes_sent": ex["bank_bytes_sent"],
+        "bank_lag_max": float(lag[:, 2].max()),
+        "bank_lag_curve": lag.tolist(),
+        "bank_missing_final_max": int(ex["bank_missing_final"].max()),
+        "synced_final": ex["synced_final"],
+        "final_params_max_abs_diff_vs_bankless": (
+            max(float((params[k] - bankless.final_params[k]).abs().max()) for k in params)
+            if name == "unlimited" else None),
+        "accs": [float(a) for a in res.accs],
+        "peak_memory_bytes": peak,
+    }
+
+
+def phase_profile(system="run_dagfl", label=None, **options):
     """A path again, shorter, under ``torch.profiler``: the device's busy
     share and where its time goes. The profiler slows the host, so these
-    times are not the main path's."""
+    times are not the main path's. ``options`` go to the entry point."""
     from repro_torch.configs.dagfl_paper_tasks import CNN_TASK
     from repro_torch.fl import systems
     from repro_torch.fl.tasks import CNNTask
@@ -375,13 +538,14 @@ def phase_profile(system="run_dagfl"):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        getattr(systems, system)(CNNTask(), nodes, dcfg, sim, gval, device="cuda")
+        getattr(systems, system)(CNNTask(), nodes, dcfg, sim, gval, device="cuda", **options)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t)
     spans = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
+    label = label or system
     if not spans:
-        return {"system": system, "iterations": PROFILED_ITERATIONS, "wall_ms": wall_ms,
+        return {"system": label, "iterations": PROFILED_ITERATIONS, "wall_ms": wall_ms,
                 "device_busy_ms": "not measured (no device events in the trace)"}
     busy_us, cur_end = 0.0, float("-inf")
     by_name = {}
@@ -391,11 +555,11 @@ def phase_profile(system="run_dagfl"):
         by_name[name] = by_name.get(name, 0.0) + (end - start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     out = {
-        "system": system, "iterations": PROFILED_ITERATIONS, "wall_ms": wall_ms,
+        "system": label, "iterations": PROFILED_ITERATIONS, "wall_ms": wall_ms,
         "device_busy_ms": busy_us / 1e3, "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
         "device_ops": len(spans),
     }
-    for kernel in ("fedavg_gather", "gossip_winner"):
+    for kernel in ("fedavg_gather", "gossip_winner", "chunk_dedup"):
         us = [end - start for start, end, name in spans if f"{kernel}_kernel" in name]
         out[f"{kernel}_in_loop"] = {"launches": len(us), "ms_total": sum(us) / 1e3,
                                     "ms_mean": sum(us) / 1e3 / max(len(us), 1)}
@@ -435,6 +599,18 @@ def phase_small_agreement():
     return {"final_params_max_abs_diff": diff, "accs": [float(a) for a in g.accs]}
 
 
+def small_draws(device, n, cap):
+    """Tip-selection and edge draws made with numpy, the same on every device."""
+    def draw(stream, index):
+        rng = np.random.default_rng([0 if stream == "prepare" else 1, index])
+        return torch.from_numpy(rng.uniform(1e-9, 1.0, cap).astype(np.float32)).to(device)
+
+    def edge_draw(round_index):
+        rng = np.random.default_rng([2, round_index])
+        return torch.from_numpy(rng.random((n, n), dtype=np.float32)).to(device)
+    return draw, edge_draw
+
+
 def phase_small_gossip_agreement():
     """A small ``run_dagfl_gossip`` on the card and on the CPU, with the same
     tip-selection and edge draws: a lossy ring with strided links and a
@@ -448,38 +624,19 @@ def phase_small_gossip_agreement():
     dcfg = default_dagfl_config(num_nodes=n)
     sim = SimConfig(iterations=20, eval_every=5, seed=0)
 
-    def draws_on(device):
-        def draw(stream, index):
-            rng = np.random.default_rng([0 if stream == "prepare" else 1, index])
-            return torch.from_numpy(rng.uniform(1e-9, 1.0, dcfg.capacity).astype(np.float32)).to(device)
-
-        def edge_draw(round_index):
-            rng = np.random.default_rng([2, round_index])
-            return torch.from_numpy(rng.random((n, n), dtype=np.float32)).to(device)
-        return draw, edge_draw
-
     out = {}
     for device in ("cuda", "cpu"):
         task, nodes, gval, _ = make_cnn_setup(num_nodes=n, seed=0)
-        draw, edge_draw = draws_on(device)
+        draw, edge_draw = small_draws(device, n, dcfg.capacity)
         out[device] = run_dagfl_gossip(
             task, nodes, dcfg, sim, gval, topology=ring(n, link_latency=1.5, drop=0.3),
             partition=PartitionSchedule(split_halves(n), 5.0, 12.0), device=device, draw=draw,
             edge_draw=edge_draw)
     g, c = out["cuda"], out["cpu"]
-    check(g.avg_latency == c.avg_latency, "gossip: avg latency differs")
-    check(np.array_equal(g.iters, c.iters) and np.array_equal(g.times, c.times),
-          "gossip: curve times differ")
-    check(np.array_equal(g.accs, c.accs), f"gossip: accuracies differ: {g.accs} vs {c.accs}")
-    columns = ("publisher", "publish_time", "approvals", "approvers", "approval_count",
-               "model_slot", "count", "published_per_node", "contributing_m0", "contributing_m1")
-    for what, dg, dc in (("union", g.extras["dag"], c.extras["dag"]),
-                         ("replicas", g.extras["replicas"].dags, c.extras["replicas"].dags)):
-        for name in columns:
-            check(torch.equal(getattr(dg, name).cpu(), getattr(dc, name)),
-                  f"gossip: {what} {name} differs")
-    for key in ("sync_rounds", "dispatch_counts", "approvals_issued", "approvals_in_union"):
-        check(g.extras[key] == c.extras[key], f"gossip: {key} differs: {g.extras[key]} vs {c.extras[key]}")
+    check_same_run("gossip", g, c)
+    check(g.extras["dispatch_counts"] == c.extras["dispatch_counts"],
+          f"gossip: dispatch_counts differ: {g.extras['dispatch_counts']} vs "
+          f"{c.extras['dispatch_counts']}")
     check(np.array_equal(g.extras["divergence_curve"], c.extras["divergence_curve"]),
           "gossip: divergence curve differs")
     check(g.extras["sync_rounds"] > 0, "gossip: no sync round ran")
@@ -487,6 +644,110 @@ def phase_small_gossip_agreement():
     check(diff <= 1e-4, f"gossip: final params differ by {diff}")
     return {"final_params_max_abs_diff": diff, "accs": [float(a) for a in g.accs],
             "sync_rounds": g.extras["sync_rounds"], "dispatch_counts": g.extras["dispatch_counts"]}
+
+
+def phase_small_bank_agreement():
+    """A small banked ``run_dagfl_gossip`` on the card and on the CPU with
+    the same draws: a lossy ring with strided, starved links (10 Mbit/s, 7
+    MB models, so credit rolls over and gating holds rows back) and a
+    partition that heals."""
+    from repro_torch.fl.experiments import default_dagfl_config, make_cnn_setup
+    from repro_torch.fl.systems import SimConfig, run_dagfl_gossip
+    from repro_torch.net.bank import BankGossipConfig
+    from repro_torch.net.gossip import PartitionSchedule
+    from repro_torch.net.topology import ring, split_halves
+
+    n = 8
+    dcfg = default_dagfl_config(num_nodes=n)
+    sim = SimConfig(iterations=20, eval_every=5, seed=0)
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        task, nodes, gval, _ = make_cnn_setup(num_nodes=n, seed=0)
+        draw, edge_draw = small_draws(device, n, dcfg.capacity)
+        out[device] = run_dagfl_gossip(
+            task, nodes, dcfg, sim, gval,
+            topology=ring(n, link_latency=1.5, drop=0.3, bandwidth=1e7),
+            partition=PartitionSchedule(split_halves(n), 5.0, 12.0),
+            bank_gossip=BankGossipConfig(chunks_per_slot=MAIN_CHUNKS,
+                                         slot_bytes=TABLE1_SLOT_BYTES),
+            device=device, draw=draw, edge_draw=edge_draw)
+    g, c = out["cuda"], out["cpu"]
+    check_same_run("bank small", g, c)
+    for key in ("dispatch_counts", "bank_bytes_sent", "synced_final"):
+        check(g.extras[key] == c.extras[key],
+              f"bank small: {key} differs: {g.extras[key]} vs {c.extras[key]}")
+    for key in ("divergence_curve", "bank_lag_curve", "bank_missing_final"):
+        check(np.array_equal(g.extras[key], c.extras[key]), f"bank small: {key} differs")
+    for name in ("have", "credit", "sent"):
+        check(torch.equal(getattr(g.extras["replicas"].bank_state, name).cpu(),
+                          getattr(c.extras["replicas"].bank_state, name)),
+              f"bank small: transport {name} differs")
+    lag = g.extras["bank_lag_curve"]
+    check(lag[:, 2].max() > 0, "bank small: no payload lagged its row (gating never bit)")
+    diff = max(float((g.final_params[k].cpu() - c.final_params[k]).abs().max()) for k in c.final_params)
+    check(diff <= 1e-4, f"bank small: final params differ by {diff}")
+    return {"final_params_max_abs_diff": diff, "accs": [float(a) for a in g.accs],
+            "sync_rounds": g.extras["sync_rounds"], "bank_bytes_sent": g.extras["bank_bytes_sent"],
+            "bank_lag_curve": lag.tolist()}
+
+
+def dedup_case(ck, name, r, s, c, classes, special, gen, reps=40):
+    """One shape of the chunk-dedup kernel: bitwise against the plain
+    version, then times. Digests fall into ``classes`` duplicate classes;
+    ``special`` adds NaN and -0.0/+0.0 digests."""
+    dev = torch.device("cuda")
+    kw = dict(generator=gen, device=dev)
+    dig = torch.randint(0, classes, (s, c), **kw).float()
+    if special:
+        dig[torch.rand((s, c), **kw) < 0.1] = float("nan")
+        zero = torch.rand((s, c), **kw) < 0.1
+        dig[zero] = torch.where(torch.rand((s, c), **kw) < 0.5, -0.0, 0.0)[zero]
+    have = torch.rand((r, s, c), **kw) < 0.5
+    got = ck.chunk_dedup(have, dig)
+    want = ck.chunk_dedup_plain(have, dig)
+    torch.cuda.synchronize()
+    max_abs_err = int((got.int() - want.int()).abs().max())
+    check(torch.equal(got, want), f"{name}: chunk_dedup differs from its plain version "
+                                  f"({int((got != want).sum())} entries)")
+
+    kernel = lambda: ck.chunk_dedup(have, dig)
+    plain = lambda: ck.chunk_dedup_plain(have, dig)
+    # yardstick only: one batched product of the presence (C, R, S) against a
+    # precomputed equality table (C, S, S), which is the dense form's work
+    pres = have.permute(2, 0, 1).float().contiguous()
+    eq = (dig.t()[:, :, None] == dig.t()[:, None, :]).float()
+    library = lambda: torch.bmm(pres, eq)
+    ms = device_ms(kernel, [()] * reps)
+    plain_ms = device_ms(plain, [()] * 8)
+    library_ms = device_ms(library, [()] * reps)
+    wrapper_call_ms = call_ms(kernel, [()] * reps)
+    # least bytes: presence and digests read once, availability written once;
+    # least operations: one class lookup per output (equal digests form a
+    # class within a column, so O(R S C) work suffices)
+    nbytes = 2 * r * s * c + 4 * s * c
+    ops = r * s * c
+    bytes_s, ops_s = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOPS
+    return {
+        "case": name, "R": r, "S": s, "C": c, "digest_classes": classes, "nan_and_zeros": special,
+        "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "library": "torch.bmm(presence (C,R,S) f32, equality table (C,S,S) f32)",
+        "call_ms": wrapper_call_ms, "bound_ms": 1e3 * max(bytes_s, ops_s),
+        "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+    }
+
+
+def phase_dedup_kernel(ck):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    return [
+        dedup_case(ck, "main", MAIN_NODES, MAIN_SLOTS, MAIN_CHUNKS, 64, False, gen),
+        dedup_case(ck, "gate", 1, MAIN_SLOTS, MAIN_CHUNKS, 64, False, gen),
+        dedup_case(ck, "ragged", 37, 1000, 3, 100, False, gen),
+        dedup_case(ck, "nan_and_zeros", MAIN_NODES, MAIN_SLOTS, MAIN_CHUNKS, 8, True, gen),
+        dedup_case(ck, "one_class", MAIN_NODES, MAIN_SLOTS, MAIN_CHUNKS, 1, False, gen),
+        dedup_case(ck, "scale", 400, MAIN_SLOTS, MAIN_CHUNKS, 64, False, gen, reps=20),
+    ]
 
 
 def nvidia_smi_line():
@@ -508,7 +769,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     from repro_torch.device import resolve_device
-    from repro_torch.kernels import cuda_build, fedavg
+    from repro_torch.kernels import chunk_transfer, cuda_build, fedavg
     from repro_torch.kernels import gossip_merge
 
     resolve_device("cuda")
@@ -531,16 +792,28 @@ def main() -> int:
         main_path = phase_main_path(cuda_build)
         print(json.dumps({"main_path": main_path}))
         print(json.dumps({"profile": phase_profile()}))
-        gossip_path = phase_gossip_main_path(cuda_build)
+        gossip_path, bankless = phase_gossip_main_path(cuda_build)
         print(json.dumps({"gossip_main_path": gossip_path}))
         print(json.dumps({"profile_gossip": phase_profile("run_dagfl_gossip")}))
+
+        print(json.dumps({"digests": phase_digests()}))
+        bank_paths = phase_bank_main_path(cuda_build, bankless)
+        del bankless
+        print(json.dumps({"bank_main_path": bank_paths}))
+        print(json.dumps({"profile_bank": phase_profile(
+            "run_dagfl_gossip", label="run_dagfl_gossip(bank_gossip, Table I)",
+            **bank_runs()["table1"])}))
 
         small = phase_small_agreement()
         print(json.dumps({"small_agreement": small}))
         small_gossip = phase_small_gossip_agreement()
         print(json.dumps({"small_gossip_agreement": small_gossip}))
+        small_bank = phase_small_bank_agreement()
+        print(json.dumps({"small_bank_agreement": small_bank}))
         gossip_cases = phase_gossip_kernel(gossip_merge)
         print(json.dumps({"gossip_cases": gossip_cases}))
+        dedup_cases = phase_dedup_kernel(chunk_transfer)
+        print(json.dumps({"dedup_cases": dedup_cases}))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -576,6 +849,22 @@ def main() -> int:
         "bound_ms": gossip_main["bound_ms"],
         "bound_by": gossip_main["bound_by"],
         "library_ms": None,          # no single PyTorch call computes the winner
+    })
+    dedup_main = next(c for c in dedup_cases if c["case"] == "main")
+    kernels.append({
+        "name": "chunk_dedup",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/chunk_dedup.cu",
+        "replaces": "src/repro/kernels/chunk_transfer.py:63",
+        "launches": bank_paths["table1"]["launches"].get("chunk_dedup", 0),
+        "max_abs_err": max(c["max_abs_err"] for c in dedup_cases),
+        "ms": dedup_main["ms"],
+        "kernel_ms": dedup_main["ms"],
+        "call_ms": dedup_main["call_ms"],
+        "plain_ms": dedup_main["plain_ms"],
+        "bound_ms": dedup_main["bound_ms"],
+        "bound_by": dedup_main["bound_by"],
+        "library_ms": dedup_main["library_ms"],   # torch.bmm against the equality table
     })
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

@@ -19,7 +19,9 @@ reference's, bit for bit.
 ``run_dagfl_gossip`` runs the same loop with each node against its own
 ledger replica, synced by anti-entropy gossip over an overlay
 (``repro_torch.net``); its edge draws go through ``edge_draw`` the same way
-(``repro_torch.net.gossip``).
+(``repro_torch.net.gossip``). With ``bank_gossip`` the model payloads travel
+too, priced per link (``repro_torch.net.bank``), and a node sees only the
+transactions whose models it has received.
 """
 from __future__ import annotations
 
@@ -364,14 +366,15 @@ class _GossipLedger:
 
     name = "dagfl_gossip"
 
-    def __init__(self, state, topology, gossip, partition, edge_draw=None):
+    def __init__(self, state, topology, gossip, partition, bank_gossip=None, edge_draw=None):
         self.net = gossip_lib.GossipNetwork(state.dag, state.bank, topology, gossip, partition,
-                                            edge_draw=edge_draw)
+                                            bank_cfg=bank_gossip, edge_draw=edge_draw)
         self.capacity = int(state.dag.publisher.shape[0])
         self.seq = int(state.dag.count)       # genesis consumed sequence 0
         # distinct approvals issued, counted on the device, read once in extras
         self._issued = torch.zeros((), dtype=torch.int64, device=self.net.device)
         self.divergence = []
+        self.bank_lag = []
 
     @property
     def bank(self):
@@ -382,6 +385,11 @@ class _GossipLedger:
         return replica_lib.read_replica(self.net.replicas, node_id)
 
     def view(self, node_id):
+        # with the bank gossiped, the node's usable view: rows whose model
+        # chunks have not arrived are masked out, so tip selection (and
+        # hence approval) waits for the payload
+        if self.net.bank_cfg is not None:
+            return self.net.read_view(node_id)
         return self._replica(node_id)
 
     def advance(self, t):
@@ -403,6 +411,9 @@ class _GossipLedger:
         self._issued += ((rows >= 0) & ~credited).sum()
         dag_i, bank = _gossip_commit(dag_i, self.net.bank, node_id, t1, prepared, self.seq)
         self.net.write(node_id, dag_i, bank)
+        # transport accounting: the committer holds its own payload's chunks;
+        # the ring-reused slot's old content leaves everyone else
+        self.net.bank_commit(node_id, self.seq % self.capacity, prepared.new_params)
         self.seq += 1
 
     def union_dag(self):
@@ -410,12 +421,23 @@ class _GossipLedger:
 
     def observe(self, done, t1, union):
         self.divergence.append((done, float(t1), int(self.net.missing_rows(union).max())))
+        if self.net.bank_cfg is not None:
+            self.bank_lag.append((done, float(t1), int(self.net.missing_chunks().max())))
 
     def extras(self, union):
-        return {
+        out = {}
+        replicas = self.net.replicas
+        if self.net.bank_cfg is not None:
+            out = {
+                # payload transport: chunks still owed vs what the run paid
+                "bank_missing_final": self.net.missing_chunks(),
+                "bank_bytes_sent": self.net.bytes_sent(),
+                "bank_lag_curve": np.asarray(self.bank_lag, dtype=np.float64),
+            }
+            replicas = replicas._replace(bank_state=replica_lib.snapshot(replicas.bank_state))
+        return out | {
             # a copy: the replicas are written in place
-            "replicas": self.net.replicas._replace(
-                dags=replica_lib.snapshot(self.net.replicas.dags)),
+            "replicas": replicas._replace(dags=replica_lib.snapshot(replicas.dags)),
             "sync_rounds": self.net.rounds_run,
             "device_calls": self.net.device_calls,
             "dispatch_counts": dict(self.net.dispatch_counts),
@@ -458,14 +480,20 @@ def run_dagfl_gossip(
     ``run_dagfl``. Defaults: ``full(len(nodes))``, ``GossipConfig(
     sync_period=1.0, seed=sim.seed)`` (ticks engine, fused round).
 
+    ``bank_gossip`` (a ``repro_torch.net.bank.BankGossipConfig``) gossips the
+    model bank too: each commit's payload travels in content-addressed
+    chunks at the topology's per-link bandwidth, a node's view shows only
+    rows whose payload has arrived, and ``extras`` gains
+    ``bank_missing_final``, ``bank_bytes_sent`` and ``bank_lag_curve``.
+
     ``draw`` and ``edge_draw`` replace the tip-selection and edge draws
-    (``run_dagfl``, ``repro_torch.net.gossip``). ``mesh``, ``bank_gossip``,
-    ``engine="events"``, ``obs``, ``faults`` and ``serve`` are not ported
-    yet and raise ``NotImplementedError``.
+    (``run_dagfl``, ``repro_torch.net.gossip``). ``mesh``,
+    ``engine="events"``, ``obs``, ``faults``, ``serve`` and a bank codec
+    are not ported yet and raise ``NotImplementedError``, alone or with
+    ``bank_gossip``.
     """
-    gossip_lib._unported(mesh=(mesh, "ROADMAP A.12"), bank_gossip=(bank_gossip, "ROADMAP A.6"),
-                         obs=(obs, "ROADMAP A.9"), faults=(faults, "ROADMAP A.10"),
-                         serve=(serve, "ROADMAP A.11"))
+    gossip_lib._unported(mesh=(mesh, "ROADMAP A.12"), obs=(obs, "ROADMAP A.9"),
+                         faults=(faults, "ROADMAP A.10"), serve=(serve, "ROADMAP A.11"))
     if topology is None:
         topology = topo_lib.full(len(nodes))
     if gossip is None:
@@ -477,6 +505,6 @@ def run_dagfl_gossip(
     return _run_dagfl_events(
         task, nodes, dcfg, sim, global_val, weighted,
         lambda state, commit_fn: _GossipLedger(state, topology, gossip, partition,
-                                               edge_draw=edge_draw),
+                                               bank_gossip=bank_gossip, edge_draw=edge_draw),
         device, draw,
     )

@@ -31,9 +31,16 @@ draw goes through one function, ``edge_draw(round_index) -> (N, N) f32`` in
 draw nothing). The default (``torch_edge_draw``) is a ``torch.Generator`` on
 the device seeded with ``cfg.seed``; the tests pass the reference's draws.
 
-Only the ticks engine without bank gossip, telemetry, faults, serving or a
-mesh is ported; ``GossipNetwork`` raises ``NotImplementedError`` naming the
-ROADMAP item for each of those options.
+Bank gossip (``bank_cfg=BankGossipConfig(...)``, ``repro_torch.net.bank``):
+every tick also moves model payload availability. Rows merge first, then
+the chunk step runs on the post-merge replicas over the same edge mask,
+priced per directed link; ``read_view`` gates a node's view on payload
+arrival and ``converge`` also waits for every referenced chunk. With
+unlimited capacity the whole trajectory is bitwise the bankless one.
+
+Only the ticks engine, with or without bank gossip, and without telemetry,
+faults, serving, a codec or a mesh is ported; ``GossipNetwork`` raises
+``NotImplementedError`` naming the ROADMAP item for each of those options.
 """
 from __future__ import annotations
 
@@ -46,8 +53,11 @@ import torch
 
 from repro_torch.core import dag as dag_lib
 from repro_torch.core.dag import DagState
+from repro_torch.kernels import chunk_transfer as chunk_kernel
 from repro_torch.kernels import gossip_merge as gossip_kernel
+from repro_torch.net import bank as bank_lib
 from repro_torch.net import replica as replica_lib
+from repro_torch.net.bank import BankGossipConfig, BankState
 from repro_torch.net.topology import Topology, neighbor_table, partition_matrix
 
 EdgeDraw = Callable[[int], torch.Tensor]
@@ -171,6 +181,23 @@ def _apply_round(dags: DagState, edge_active: torch.Tensor, nbr_idx, nbr_valid,
     return _round_fused(dags, edge_active, nbr_idx, nbr_valid, impl)
 
 
+def _bank_tick_single(dags: DagState, bstate: BankState, digest: torch.Tensor,
+                      edges: torch.Tensor, nbr_idx, nbr_valid, cap_bytes: torch.Tensor,
+                      chunk_bytes: float, impl: str):
+    """One sync tick with the model bank gossiped.
+
+    Rows merge first (the bankless round), then the chunk step runs on the
+    post-merge replicas over the same edge mask: metadata and payload
+    travel the same links in the same tick, so with unlimited bandwidth
+    availability tracks visibility exactly and the dags trajectory is the
+    bankless one. One ``chunk_dedup`` launch per tick.
+    """
+    dags = _apply_round(dags, edges, nbr_idx, nbr_valid, impl)
+    sat = chunk_kernel.chunk_dedup(bstate.have, digest)
+    return dags, bank_lib.chunk_step(dags, bstate, digest, sat, sat, edges, cap_bytes,
+                                     chunk_bytes)
+
+
 def make_gossip_round(impl: str = "fused", mesh=None):
     """(dags, edge_active) -> dags anti-entropy round.
 
@@ -228,15 +255,15 @@ class GossipNetwork:
         cfg: GossipConfig = GossipConfig(),
         partition: Optional[PartitionSchedule] = None,
         mesh=None,
-        bank_cfg=None,
+        bank_cfg: Optional[BankGossipConfig] = None,
         obs_cfg=None,
         faults_cfg=None,
         serve_cfg=None,
         edge_draw: Optional[EdgeDraw] = None,
     ):
-        _unported(mesh=(mesh, "ROADMAP A.12"), bank_cfg=(bank_cfg, "ROADMAP A.6"),
-                  obs_cfg=(obs_cfg, "ROADMAP A.9"), faults_cfg=(faults_cfg, "ROADMAP A.10"),
-                  serve_cfg=(serve_cfg, "ROADMAP A.11"))
+        _unported(mesh=(mesh, "ROADMAP A.12"), obs_cfg=(obs_cfg, "ROADMAP A.9"),
+                  faults_cfg=(faults_cfg, "ROADMAP A.10"), serve_cfg=(serve_cfg, "ROADMAP A.11"),
+                  codec=(getattr(bank_cfg, "codec", None), "ROADMAP A.7"))
         if cfg.engine == "events":
             raise NotImplementedError("engine='events' is not ported yet (ROADMAP A.8)")
         if cfg.engine != "ticks":
@@ -248,8 +275,11 @@ class GossipNetwork:
         self.topology = top
         self.cfg = cfg
         self.partition = partition
+        self.bank_cfg = bank_cfg
         self.device = dev
         self.replicas = replica_lib.init_replicas(dag, bank, n)
+        if bank_cfg is not None:
+            self._init_bank(bank, top, cfg, bank_cfg)
         stride = stride_matrix(top, cfg.sync_period, use_strides=cfg.sync_period > 0)
         self._max_stride = int(stride[top.adjacency].max()) if top.adjacency.any() else 1
         self._adj = torch.from_numpy(np.asarray(top.adjacency, bool)).to(dev)
@@ -272,6 +302,30 @@ class GossipNetwork:
         period = cfg.sync_period
         self._next_tick_t = period if period > 0 else 0.0
 
+    def _init_bank(self, bank, top: Topology, cfg: GossipConfig, bank_cfg: BankGossipConfig):
+        c = bank_cfg.chunks_per_slot
+        slots = bank.rows.shape[0]
+        slot_b = (bank_lib.slot_nbytes(bank) if bank_cfg.slot_bytes is None
+                  else float(bank_cfg.slot_bytes))
+        # the reference's f32 granule, held as the Python float of that value
+        self._chunk_bytes = float(np.float32(max(slot_b / c, 1e-9)))
+        self._digest = bank_lib.bank_digests(bank, c)
+        # per-tick, per-directed-link byte budget: Table-I bits/s over one
+        # sync period; sync_period <= 0 is the ideal wire, where payload
+        # moves as freely as metadata whatever `bandwidth` says
+        if cfg.sync_period > 0:
+            cap = top.bandwidth / 8.0 * cfg.sync_period
+        else:
+            cap = np.where(top.adjacency, np.inf, 0.0)
+        # converge()'s tick bound also covers draining payloads: a full slot
+        # over the slowest finite link costs this many ticks
+        finite = cap[top.adjacency & np.isfinite(cap) & (cap > 0)]
+        self._drain_ticks = (int(min(np.ceil(slot_b / float(finite.min())), 256))
+                             if finite.size else 0)
+        self._cap_bytes = torch.from_numpy(np.asarray(cap, np.float32)).to(self.device)
+        self.replicas = self.replicas._replace(
+            bank_state=bank_lib.init_bank_state(top.num_nodes, slots, c, self.device))
+
     # --- replica access ----------------------------------------------------
 
     @property
@@ -288,16 +342,59 @@ class GossipNetwork:
         if bank is not None:
             self.replicas = self.replicas._replace(bank=bank)
 
+    # --- bank transport (only when constructed with bank_cfg) ---------------
+
+    @property
+    def bank_state(self) -> Optional[BankState]:
+        return self.replicas.bank_state
+
     def read_view(self, i) -> DagState:
-        """Node i's usable view; without bank gossip exactly ``read``."""
-        return self.read(i)
+        """Node i's usable view, a copy: with the bank gossiped, rows whose
+        model chunks have not arrived are masked out (``bank.gate_view``, one
+        ``chunk_dedup`` launch), so Algorithm 2 cannot select or approve a
+        payload-less transaction; without bank gossip exactly ``read``."""
+        dag = self.read(i)
+        if self.bank_cfg is None:
+            return dag
+        return bank_lib.gate_view(dag, self.replicas.bank_state.have[i], self._digest)
+
+    def bank_commit(self, node_id: int, slot: int, params) -> None:
+        """Account a stage-4 commit in the transport state: the committer
+        holds the new chunks, every other node's presence bits for the
+        (ring-reused) slot reset, and the slot's digest is re-derived."""
+        if self.bank_cfg is None:
+            return
+        bstate = self.replicas.bank_state
+        have, self._digest = self._dispatch("bank_commit", bank_lib.commit_chunks,
+                                            bstate.have, self._digest, params, slot, node_id)
+        self.replicas = self.replicas._replace(bank_state=bstate._replace(have=have))
+
+    def missing_chunks(self) -> np.ndarray:
+        """(N,) referenced-but-unavailable chunks per node — the payload lag
+        behind row visibility (all zeros without bank gossip)."""
+        if self.bank_cfg is None:
+            return np.zeros(self.topology.num_nodes, np.int32)
+        return bank_lib.missing_chunks(self.replicas.dags, self.replicas.bank_state,
+                                       self._digest).cpu().numpy()
+
+    def bytes_sent(self) -> float:
+        """Total payload bytes delivered so far (the Table-I traffic bill)."""
+        if self.bank_cfg is None:
+            return 0.0
+        return float(self.replicas.bank_state.sent.sum())
 
     def union(self) -> DagState:
         return replica_lib.merge_all(self.replicas.dags)
 
     def synced(self) -> bool:
-        """Row-identical replicas (one host read)."""
-        return bool(replica_lib.replicas_synced(self.replicas.dags))
+        """Fully converged: row-identical replicas and, with the bank
+        gossiped, every referenced payload delivered. The chunk count is read
+        either way (one ``chunk_dedup`` launch), so a run's launches do not
+        depend on whether its rows synced."""
+        rows = bool(replica_lib.replicas_synced(self.replicas.dags))
+        if self.bank_cfg is None:
+            return rows
+        return int(self.missing_chunks().max()) == 0 and rows
 
     def missing_rows(self, union: Optional[DagState] = None) -> np.ndarray:
         """(N,) rows each replica lacks vs the union view (0 = converged).
@@ -318,22 +415,30 @@ class GossipNetwork:
         self.dispatch_counts[label] = self.dispatch_counts.get(label, 0) + 1
         return fn(*args)
 
-    def _round(self, dags: DagState, tick: int, part_mask: torch.Tensor) -> DagState:
-        """One executed round: the next edge draw, the sampled mask, the merge."""
+    def _round(self, dags: DagState, bstate: Optional[BankState], tick: int,
+               part_mask: torch.Tensor):
+        """One executed round: the next edge draw, the sampled mask, the merge
+        and, with the bank gossiped, the chunk step. Returns (dags, bstate)."""
         uniform = self._edge_draw(self.rounds_run)
         self.rounds_run += 1
         edges = _sample_edges(uniform, tick, part_mask, self._adj, self._drop, self._stride)
-        return _apply_round(dags, edges, self._nbr_idx, self._nbr_valid, self.cfg.impl)
+        if bstate is None:
+            return _apply_round(dags, edges, self._nbr_idx, self._nbr_valid, self.cfg.impl), None
+        return _bank_tick_single(dags, bstate, self._digest, edges, self._nbr_idx,
+                                 self._nbr_valid, self._cap_bytes, self._chunk_bytes,
+                                 self.cfg.impl)
 
     def _advance_window(self, ticks, part_active) -> None:
-        dags = self.replicas.dags
+        dags, bstate = self.replicas.dags, self.replicas.bank_state
         for tick, pact in zip(ticks, part_active):
-            dags = self._round(dags, tick, self._part_mask if pact else self._all_mask)
-        self.replicas = self.replicas._replace(dags=dags)
+            dags, bstate = self._round(dags, bstate, tick,
+                                       self._part_mask if pact else self._all_mask)
+        self.replicas = self.replicas._replace(dags=dags, bank_state=bstate)
 
     def _run_ticks(self, ticks, part_active) -> None:
         """Execute a batch of sync ticks as one entry point."""
-        self._dispatch("advance", self._advance_window, ticks, part_active)
+        label = "advance" if self.bank_cfg is None else "advance_bank"
+        self._dispatch(label, self._advance_window, ticks, part_active)
         self.tick += len(ticks)
 
     def _tick_once(self, t: float) -> None:
@@ -361,32 +466,47 @@ class GossipNetwork:
             self.tick += periods_behind
             self._next_tick_t += periods_behind * self.cfg.sync_period
 
+    def _synced(self, dags: DagState, bstate: Optional[BankState]) -> bool:
+        """The fixpoint predicate: rows synced and, with the bank gossiped,
+        no referenced chunk missing anywhere."""
+        if not bool(replica_lib.replicas_synced(dags)):
+            return False
+        return bstate is None or int(bank_lib.missing_chunks(dags, bstate, self._digest).max()) == 0
+
     def _converge_loop(self, part_mask: torch.Tensor, limit: int, stall_limit: int) -> bool:
-        dags = self.replicas.dags
+        dags, bstate = self.replicas.dags, self.replicas.bank_state
         stalled = done = 0
-        while (done < limit and stalled < stall_limit
-               and not bool(replica_lib.replicas_synced(dags))):
-            new = self._round(dags, self.tick, part_mask)
-            stalled = stalled + 1 if bool(trees_equal(new, dags)) else 0
-            dags = new
+        while done < limit and stalled < stall_limit and not self._synced(dags, bstate):
+            new, newb = self._round(dags, bstate, self.tick, part_mask)
+            same = trees_equal(new, dags)
+            if bstate is not None:      # credit accrual on a pending link is progress
+                same = same & trees_equal(newb, bstate)
+            stalled = stalled + 1 if bool(same) else 0
+            dags, bstate = new, newb
             self.tick += 1
             done += 1
-        self.replicas = self.replicas._replace(dags=dags)
-        return bool(replica_lib.replicas_synced(dags))
+        self.replicas = self.replicas._replace(dags=dags, bank_state=bstate)
+        return self._synced(dags, bstate)
 
     def converge(self, at_time: float = float("inf")) -> bool:
         """Tick until the replicas reach fixpoint (ideal-wire flush / heal).
 
-        Bounded by ``num_nodes * max_stride`` ticks (stride capped at 64); a
-        full stride cycle of unchanged state is a fixpoint (partition active
-        or overlay disconnected). Returns whether full sync was reached.
+        Bounded by ``num_nodes * max_stride`` ticks (stride capped at 64), and
+        with the bank gossiped by ``(num_nodes + drain_ticks) * max_stride``:
+        rows cross in at most num_nodes strided hops, then chunks drain at
+        the per-link budget. A full stride cycle of unchanged state (and
+        transport state) is a fixpoint (partition active, overlay
+        disconnected, or a dead link). Returns whether full sync was reached.
 
         The reference runs this as one ``lax.while_loop`` with its predicate
-        on the device; here it is a Python loop whose predicate costs two
-        host reads per tick (synced, unchanged). Keeping the loop on the
-        device (CUDA graphs) is later work.
+        on the device; here it is a Python loop whose predicate costs host
+        reads every tick (synced, unchanged; with the bank the missing-chunk
+        count, one ``chunk_dedup`` launch, once rows are synced). Keeping
+        the loop on the device (CUDA graphs) is later work.
         """
-        limit = self.topology.num_nodes * min(self._max_stride, 64)
-        stall_limit = min(self._max_stride, 64)
-        return self._dispatch("converge", self._converge_loop, self._mask_at(at_time),
-                              limit, stall_limit)
+        stride = min(self._max_stride, 64)
+        if self.bank_cfg is None:
+            return self._dispatch("converge", self._converge_loop, self._mask_at(at_time),
+                                  self.topology.num_nodes * stride, stride)
+        return self._dispatch("converge_bank", self._converge_loop, self._mask_at(at_time),
+                              (self.topology.num_nodes + self._drain_ticks) * stride, stride)

@@ -31,6 +31,7 @@ from repro_torch.kernels import gossip_merge as gossip_kernel
 class ReplicaSet(NamedTuple):
     dags: DagState      # every leaf has leading axis (R, ...)
     bank: Any           # shared model bank (repro_torch.core.bank.Bank)
+    bank_state: Any = None   # per-node chunk transport (repro_torch.net.bank.BankState)
 
     @property
     def num_replicas(self) -> int:
@@ -49,9 +50,10 @@ def stack(dag: DagState, num_replicas: int) -> DagState:
     return DagState(*(x.unsqueeze(0).repeat((num_replicas,) + (1,) * x.dim()) for x in dag))
 
 
-def snapshot(dags: DagState) -> DagState:
-    """A copy of every leaf: what a later ``write_replica`` cannot change."""
-    return DagState(*(x.clone() for x in dags))
+def snapshot(state):
+    """A copy of every leaf of a ``DagState`` (or a ``BankState``): what a
+    later in-place write cannot change."""
+    return type(state)(*(x.clone() for x in state))
 
 
 def read_replica(rs: ReplicaSet, i) -> DagState:

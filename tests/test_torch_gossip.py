@@ -36,6 +36,7 @@ from repro_torch.fl import systems as t_sys
 from repro_torch.fl import tasks as t_tasks
 from repro_torch.kernels import gossip_merge as t_gm
 from repro_torch.net import gossip as t_gossip
+from repro_torch.net.bank import BankGossipConfig
 from repro_torch.net import replica as t_replica
 from repro_torch.net import topology as t_topo
 
@@ -495,8 +496,9 @@ def test_ideal_wire_equals_run_dagfl(impl):
 
 
 @pytest.mark.parametrize("option", [
-    dict(mesh=object()), dict(bank_gossip=object()), dict(engine="events"), dict(obs=object()),
-    dict(faults=object()), dict(serve=object()),
+    dict(mesh=object()), dict(bank_gossip=BankGossipConfig(codec=object())),
+    dict(bank_gossip=BankGossipConfig(), faults=object()), dict(engine="events"),
+    dict(obs=object()), dict(faults=object()), dict(serve=object()),
     dict(gossip=t_gossip.GossipConfig(engine="events")),
 ])
 def test_unported_options_raise(option):
@@ -509,7 +511,8 @@ def test_unported_options_raise(option):
 def test_unported_network_parts_raise():
     dag = dag_to_t(_genesis(3))
     top = t_topo.ring(3)
-    for kw in (dict(mesh=object()), dict(bank_cfg=object()), dict(obs_cfg=object()),
+    for kw in (dict(mesh=object()), dict(bank_cfg=BankGossipConfig(codec=object())),
+               dict(bank_cfg=BankGossipConfig(), faults_cfg=object()), dict(obs_cfg=object()),
                dict(faults_cfg=object()), dict(serve_cfg=object()),
                dict(cfg=t_gossip.GossipConfig(engine="events"))):
         with pytest.raises(NotImplementedError, match="ROADMAP A"):

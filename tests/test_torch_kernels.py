@@ -19,6 +19,10 @@ The gossip-merge winner, ``kernels/gossip_merge.py``: its outputs are
 indices and counters, so the kernel must equal the plain version bitwise
 (``test_gossip_winner_kernel_on_card``); the plain version is held against
 the reference in ``tests/test_torch_gossip.py``.
+
+The chunk dedup, ``kernels/chunk_transfer.py``: a bitmap, so the kernel must
+equal the plain version bitwise (``test_chunk_dedup_kernel_on_card``); the
+plain version is held against the reference in ``tests/test_torch_bank.py``.
 """
 import numpy as np
 import pytest
@@ -26,6 +30,7 @@ import torch
 
 from repro_torch.core import aggregation as t_agg
 from repro_torch.core import bank as t_bank
+from repro_torch.kernels import chunk_transfer as t_ck
 from repro_torch.kernels import cuda_build
 from repro_torch.kernels import fedavg as t_fedavg
 from repro_torch.kernels import gossip_merge as t_gm
@@ -266,3 +271,58 @@ def test_gossip_winner_kernel_on_card(cuda, r, rr, cap, offset, density):
         t_gm.gossip_winner(t, pub.long(), ac, mask)
     with pytest.raises(ValueError, match="row_offset"):
         t_gm.gossip_winner(t, pub, ac, mask, row_offset=r - rr + 1)
+
+
+def dedup_state(gen, r, s, c, classes, device):
+    """Dedup inputs with duplicate digest classes, NaN digests, -0.0 beside
+    +0.0, and a mixed presence."""
+    kw = dict(generator=gen, device=device)
+    dig = torch.randint(0, classes, (s, c), **kw).float()
+    dig[torch.rand((s, c), **kw) < 0.05] = float("nan")
+    zero = torch.rand((s, c), **kw) < 0.05
+    dig[zero] = torch.where(torch.rand((s, c), **kw) < 0.5, -0.0, 0.0)[zero]
+    have = torch.rand((r, s, c), **kw) < 0.3
+    return have, dig
+
+
+def test_chunk_dedup_wrapper_launches_nothing_off_the_card():
+    gen = torch.Generator().manual_seed(0)
+    have, dig = dedup_state(gen, 3, 11, 2, 3, "cpu")
+    before = cuda_build.LAUNCHES["chunk_dedup"]
+    sat = t_ck.chunk_dedup(have, dig)
+    assert cuda_build.LAUNCHES["chunk_dedup"] == before
+    assert sat.dtype == torch.bool and torch.equal(sat, t_ck.chunk_dedup_plain(have, dig))
+    assert bool((sat | ~have).all())           # physical presence always counts
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        t_ck.chunk_dedup(torch.empty((3, 11, 2), dtype=torch.bool, device="meta"),
+                         torch.empty((11, 2), device="meta"))
+    source = cuda_build.CSRC / "chunk_dedup.cu"
+    cmd = cuda_build.build_command("nvcc", source, "x.so")
+    assert source.exists() and "arch=compute_90a,code=sm_90a" in cmd and cmd[-1] == str(source)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,s,c,classes", [
+    (100, 512, 4, 40),      # a tick and the checks at the main path's shape
+    (1, 512, 4, 40),        # each gated view (gate_view)
+    (37, 1000, 3, 100),     # ragged: S and R not multiples of a block
+    (400, 512, 4, 40),      # more receivers
+    (5, 2049, 2, 7),        # more slots than one shared-memory tile
+    (9, 64, 3, 1),          # every digest equal in a column
+])
+def test_chunk_dedup_kernel_on_card(cuda, r, s, c, classes):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(r + s)
+    have, dig = dedup_state(gen, r, s, c, classes, cuda)
+    before = cuda_build.LAUNCHES["chunk_dedup"]
+    got = t_ck.chunk_dedup(have, dig)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["chunk_dedup"] == before + 1
+    assert got.dtype == torch.bool
+    assert torch.equal(got, t_ck.chunk_dedup_plain(have, dig))
+    # presence may be bytes too
+    assert torch.equal(t_ck.chunk_dedup(have.to(torch.uint8), dig), got)
+    with pytest.raises(TypeError):
+        t_ck.chunk_dedup(have, dig.double())
+    with pytest.raises(ValueError):
+        t_ck.chunk_dedup(have, dig[:-1])
