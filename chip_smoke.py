@@ -18,15 +18,20 @@ builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (into
    synced by anti-entropy gossip over the full overlay) at the same size;
    then (2c) the priced bank, ``run_dagfl_gossip(bank_gossip=...)``, once
    with unlimited bandwidth (which must equal the bankless run) and once at
-   Table-I pricing (100 Mbit/s links, 7 MB models); each path under
+   Table-I pricing (100 Mbit/s links, 7 MB models); then (2d) the wire
+   codec: the Table-I run with the identity codec (which must equal the
+   codec-less one) and the 1 Mbit/s class raw and with the int8, int4 and
+   top-k codecs (one codec launch per commit); each path under
    ``torch.profiler`` too, shorter;
 3. runs a small ``run_dagfl``, a small ``run_dagfl_gossip`` (a lossy ring
-   with a partition) and a small banked one (the same ring, starved) on the
-   card and on the CPU with the same draws and checks that they agree.
+   with a partition), a small banked one (the same ring, starved) and the
+   same with the int8 codec on the card and on the CPU with the same draws
+   and checks that they agree; and encodes the same full-width payloads on
+   the card and on the CPU, bitwise.
 
-Phase 1 of the merge-winner and chunk-dedup kernels runs last, after phase
-3; the digest check (bank table against one payload, bitwise) runs before
-phase 2c.
+Phase 1 of the merge-winner, chunk-dedup and codec kernels runs last, after
+phase 3; the digest check (bank table against one payload, bitwise) runs
+before phase 2c.
 
 Prints one JSON line of kernel numbers, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, on
@@ -55,6 +60,15 @@ MAIN_SLOTS = 512            # DagFLConfig.capacity
 MAIN_NODES = 100            # DagFLConfig.num_nodes: the gossip path's replicas
 MAIN_CHUNKS = 4             # BankGossipConfig.chunks_per_slot
 TABLE1_SLOT_BYTES = 7e6     # Table I: phi = 7 MB per model
+CONSTRAINED_BPS = 1e6       # the constrained link class: 125 KB per link per tick
+MAIN_CODEC_BLOCKS = 12_998  # the paper's CNN blocked leaf by leaf into 128-value blocks
+CODEC_COPIES = 10           # payload copies a timed codec call cycles through (66 MB > L2)
+# what parameters of two calls of the same path on the card may differ by:
+# nothing, with cuDNN's deterministic algorithms (repro_torch.device)
+CALL_NOISE_TOL = 0.0
+# the quantisation kernel's least f32 work per value: abs, max, divide,
+# round, and two clamps
+QUANT_OPS_PER_VALUE = 6
 # the winner's least work per admitted (receiver, sender, row) candidate:
 # occupancy, time >, time ==, publisher >, publisher ==, counter max
 GOSSIP_OPS_PER_CHECK = 6
@@ -439,16 +453,31 @@ def bank_runs():
 
 
 def phase_bank_main_path(cuda_build, bankless):
-    """The slice's path: ``run_dagfl_gossip(bank_gossip=...)`` at full
-    width on each wire of ``bank_runs``; the unlimited one must be the
-    bankless run of phase 2 bitwise."""
-    return {name: bank_run(cuda_build, name, options, bankless)
-            for name, options in bank_runs().items()}
+    """The bank's path: ``run_dagfl_gossip(bank_gossip=...)`` at full width
+    on each wire of ``bank_runs``; the unlimited one must be the bankless run
+    of phase 2 bitwise. Returns the summaries and the Table-I run's result."""
+    out, table1 = {}, None
+    for name, options in bank_runs().items():
+        out[name], res = bank_run(cuda_build, name, options,
+                                  bankless=bankless if name == "unlimited" else None)
+        if name == "table1":
+            table1 = res
+    return out, table1
 
 
-def bank_run(cuda_build, name, options, bankless):
-    """One full-width bank run, checked; returns its summary. Nothing of the
-    run outlives the call, so the next run's peak memory is its own."""
+def codec_kernel_name(codec):
+    """The codec kernel a codec's commits launch, or None."""
+    if codec is None or codec.is_identity:
+        return None
+    return "topk_blocks" if codec.kind == "topk" else "quant_blocks"
+
+
+def bank_run(cuda_build, name, options, bankless=None, same_as=None):
+    """One full-width bank run, checked; returns its summary and its result
+    without the bank. Nothing else of the run outlives the call, so the next
+    run's peak memory is its own. ``bankless``: the run must equal this
+    bankless run; ``same_as``: it must equal this bank run (the identity
+    codec against no codec)."""
     from repro_torch.configs.dagfl_paper_tasks import CNN_TASK
     from repro_torch.fl.systems import SimConfig, run_dagfl_gossip
     from repro_torch.fl.tasks import CNNTask
@@ -497,29 +526,94 @@ def bank_run(cuda_build, name, options, bankless):
     check(launches.get("fedavg_gather", 0) == expected,
           f"bank {name}: fedavg_gather launched {launches.get('fedavg_gather', 0)} times, "
           f"expected {expected}")
-    if name == "unlimited":
+    # one codec launch per commit, of the codec's own kernel only
+    codec = options["bank_gossip"].codec
+    for kernel in ("quant_blocks", "topk_blocks"):
+        expected = ITERATIONS if kernel == codec_kernel_name(codec) else 0
+        check(launches.get(kernel, 0) == expected,
+              f"bank {name}: {kernel} launched {launches.get(kernel, 0)} times, expected "
+              f"{expected} (one per commit of a lossy codec)")
+    if bankless is not None:
         check(int(ex["bank_missing_final"].max()) == 0 and lag[:, 2].max() == 0,
-              "bank unlimited: a payload lagged its row")
-        check_same_run("bank unlimited vs bankless", res, bankless)
+              f"bank {name}: a payload lagged its row")
+        check_same_run(f"bank {name} vs bankless", res, bankless)
+    if same_as is not None:
+        check_same_bank_run(f"bank {name}", res, same_as, CALL_NOISE_TOL)
+    reference = bankless if bankless is not None else same_as
     return {
         "iterations": ITERATIONS, "nodes": dcfg.num_nodes, "capacity": dcfg.capacity,
         "params": MAIN_P, "chunks_per_slot": MAIN_CHUNKS,
         "slot_bytes": options["bank_gossip"].slot_bytes,
         "link_bytes_per_tick": float(options["topology"].bandwidth[0, 1]) / 8.0,
+        "codec": None if codec is None else codec.kind,
         "run_s": wall_s, "ms_per_iteration": 1e3 * wall_s / ITERATIONS,
         "stage_ms": ex["stage_ms"], "checks": ex["checks"],
         "sync_rounds": ex["sync_rounds"], "dispatch_counts": ex["dispatch_counts"],
         "launches": launches, "bank_bytes_sent": ex["bank_bytes_sent"],
-        "bank_lag_max": float(lag[:, 2].max()),
+        "bank_lag_max": float(lag[:, 2].max()), "bank_lag_final": float(lag[-1, 2]),
         "bank_lag_curve": lag.tolist(),
         "bank_missing_final_max": int(ex["bank_missing_final"].max()),
         "synced_final": ex["synced_final"],
-        "final_params_max_abs_diff_vs_bankless": (
-            max(float((params[k] - bankless.final_params[k]).abs().max()) for k in params)
-            if name == "unlimited" else None),
-        "accs": [float(a) for a in res.accs],
+        "final_params_max_abs_diff_vs_reference_run": (
+            max(float((params[k] - reference.final_params[k]).abs().max()) for k in params)
+            if reference is not None else None),
+        "accs": [float(a) for a in res.accs], "final_accuracy": float(res.accs[-1]),
         "peak_memory_bytes": peak,
-    }
+    }, res_without_bank(res)
+
+
+def check_same_bank_run(what, a, b, param_tol):
+    """Two bank runs agree: everything ``check_same_run`` holds, the
+    transport state, lag curve, missing chunks and byte bill bitwise, and
+    the parameters within ``param_tol``."""
+    check_same_run(what, a, b)
+    for key in ("dispatch_counts", "bank_bytes_sent", "synced_final"):
+        check(a.extras[key] == b.extras[key],
+              f"{what}: {key} differs: {a.extras[key]} vs {b.extras[key]}")
+    for key in ("divergence_curve", "bank_lag_curve", "bank_missing_final"):
+        check(np.array_equal(a.extras[key], b.extras[key]), f"{what}: {key} differs")
+    for name in ("have", "credit", "sent"):
+        check(torch.equal(getattr(a.extras["replicas"].bank_state, name).cpu(),
+                          getattr(b.extras["replicas"].bank_state, name).cpu()),
+              f"{what}: transport {name} differs")
+    diff = max(float((a.final_params[k].cpu() - b.final_params[k].cpu()).abs().max())
+               for k in a.final_params)
+    check(diff <= param_tol, f"{what}: final params differ by {diff} > {param_tol}")
+    return diff
+
+
+def constrained_runs():
+    """Phase 2d (b): the constrained link class at full width, full(100) at
+    1 Mbit/s (125 KB per directed link per tick; phi = 7 MB, four 1.75 MB
+    raw chunks), with raw chunks and with each lossy codec."""
+    from repro_torch.configs.dagfl_paper_tasks import CNN_TASK
+    from repro_torch.kernels.delta_codec import DeltaCodec
+    from repro_torch.net.bank import BankGossipConfig
+    from repro_torch.net.topology import full
+
+    top = full(CNN_TASK.dagfl.num_nodes, bandwidth=CONSTRAINED_BPS)
+    return {kind or "raw": dict(topology=top, bank_gossip=BankGossipConfig(
+        chunks_per_slot=MAIN_CHUNKS, slot_bytes=TABLE1_SLOT_BYTES,
+        codec=None if kind is None else DeltaCodec(kind)))
+        for kind in (None, "int8", "int4", "topk")}
+
+
+def phase_codec_main_path(cuda_build, table1):
+    """The codec's path at full width: (a) the Table-I bank run again with
+    the identity codec, which must equal phase 2c's Table-I run; (b) the
+    1 Mbit/s class raw and with int8, int4 and topk."""
+    from repro_torch.kernels.delta_codec import DeltaCodec
+    from repro_torch.net.bank import BankGossipConfig
+
+    options = dict(bank_runs()["table1"])
+    options["bank_gossip"] = BankGossipConfig(chunks_per_slot=MAIN_CHUNKS,
+                                              slot_bytes=TABLE1_SLOT_BYTES,
+                                              codec=DeltaCodec("none"))
+    out = {"table1_identity": bank_run(cuda_build, "table1 identity codec", options,
+                                       same_as=table1)[0]}
+    for name, options in constrained_runs().items():
+        out[f"1mbps_{name}"] = bank_run(cuda_build, f"1 Mbit/s {name}", options)[0]
+    return out
 
 
 def phase_profile(system="run_dagfl", label=None, **options):
@@ -559,7 +653,8 @@ def phase_profile(system="run_dagfl", label=None, **options):
         "device_busy_ms": busy_us / 1e3, "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
         "device_ops": len(spans),
     }
-    for kernel in ("fedavg_gather", "gossip_winner", "chunk_dedup"):
+    for kernel in ("fedavg_gather", "gossip_winner", "chunk_dedup", "quant_blocks",
+                   "topk_blocks"):
         us = [end - start for start, end, name in spans if f"{kernel}_kernel" in name]
         out[f"{kernel}_in_loop"] = {"launches": len(us), "ms_total": sum(us) / 1e3,
                                     "ms_mean": sum(us) / 1e3 / max(len(us), 1)}
@@ -646,11 +741,17 @@ def phase_small_gossip_agreement():
             "sync_rounds": g.extras["sync_rounds"], "dispatch_counts": g.extras["dispatch_counts"]}
 
 
-def phase_small_bank_agreement():
+def phase_small_bank_agreement(codec=None):
     """A small banked ``run_dagfl_gossip`` on the card and on the CPU with
     the same draws: a lossy ring with strided, starved links (10 Mbit/s, 7
     MB models, so credit rolls over and gating holds rows back) and a
-    partition that heals."""
+    partition that heals; with ``codec`` every commit goes through it.
+
+    The integer results (curve, ledgers, transport state, lag, bytes) must
+    agree bitwise. Parameters within 1e-4, and with a quantising codec one
+    quantisation step more (the largest block's scale): the two devices'
+    training differs by about 1e-7, and a value that close to a rounding
+    boundary moves its code by one."""
     from repro_torch.fl.experiments import default_dagfl_config, make_cnn_setup
     from repro_torch.fl.systems import SimConfig, run_dagfl_gossip
     from repro_torch.net.bank import BankGossipConfig
@@ -660,6 +761,7 @@ def phase_small_bank_agreement():
     n = 8
     dcfg = default_dagfl_config(num_nodes=n)
     sim = SimConfig(iterations=20, eval_every=5, seed=0)
+    what = "bank small" if codec is None else f"bank small {codec.kind}"
 
     out = {}
     for device in ("cuda", "cpu"):
@@ -670,26 +772,217 @@ def phase_small_bank_agreement():
             topology=ring(n, link_latency=1.5, drop=0.3, bandwidth=1e7),
             partition=PartitionSchedule(split_halves(n), 5.0, 12.0),
             bank_gossip=BankGossipConfig(chunks_per_slot=MAIN_CHUNKS,
-                                         slot_bytes=TABLE1_SLOT_BYTES),
+                                         slot_bytes=TABLE1_SLOT_BYTES, codec=codec),
             device=device, draw=draw, edge_draw=edge_draw)
     g, c = out["cuda"], out["cpu"]
-    check_same_run("bank small", g, c)
-    for key in ("dispatch_counts", "bank_bytes_sent", "synced_final"):
-        check(g.extras[key] == c.extras[key],
-              f"bank small: {key} differs: {g.extras[key]} vs {c.extras[key]}")
-    for key in ("divergence_curve", "bank_lag_curve", "bank_missing_final"):
-        check(np.array_equal(g.extras[key], c.extras[key]), f"bank small: {key} differs")
-    for name in ("have", "credit", "sent"):
-        check(torch.equal(getattr(g.extras["replicas"].bank_state, name).cpu(),
-                          getattr(c.extras["replicas"].bank_state, name)),
-              f"bank small: transport {name} differs")
+    tol = 1e-4
+    if codec is not None and codec.kind in ("int8", "int4"):
+        qmax = 127 if codec.kind == "int8" else 7
+        tol += max(float(v.abs().max()) for v in c.final_params.values()) / qmax
+    diff = check_same_bank_run(what, g, c, tol)
     lag = g.extras["bank_lag_curve"]
-    check(lag[:, 2].max() > 0, "bank small: no payload lagged its row (gating never bit)")
-    diff = max(float((g.final_params[k].cpu() - c.final_params[k]).abs().max()) for k in c.final_params)
-    check(diff <= 1e-4, f"bank small: final params differ by {diff}")
-    return {"final_params_max_abs_diff": diff, "accs": [float(a) for a in g.accs],
-            "sync_rounds": g.extras["sync_rounds"], "bank_bytes_sent": g.extras["bank_bytes_sent"],
-            "bank_lag_curve": lag.tolist()}
+    check(lag[:, 2].max() > 0, f"{what}: no payload lagged its row (gating never bit)")
+    return {"final_params_max_abs_diff": diff, "param_tolerance": tol,
+            "accs": [float(a) for a in g.accs], "sync_rounds": g.extras["sync_rounds"],
+            "bank_bytes_sent": g.extras["bank_bytes_sent"], "bank_lag_curve": lag.tolist()}
+
+
+def phase_codec_encode_agreement():
+    """The same full-width payloads encoded on the card (one kernel launch
+    each) and on the CPU (the plain versions): codes, scales and masked
+    deltas bitwise, and the decoded payloads bitwise."""
+    from repro_torch.fl.tasks import CNNTask
+    from repro_torch.kernels.delta_codec import DeltaCodec
+
+    gen = torch.Generator()
+    gen.manual_seed(5)
+    params = {k: v + 0.01 * torch.randn(v.shape, generator=gen)
+              for k, v in CNNTask().init(0, "cpu").items()}
+    base = {k: v + 0.001 * torch.randn(v.shape, generator=gen) for k, v in params.items()}
+    on_card = lambda tree: {k: v.to("cuda") for k, v in tree.items()}
+    out = {}
+    for kind in ("int8", "int4", "topk"):
+        codec = DeltaCodec(kind)
+        enc_g = codec.encode(on_card(params), on_card(base))
+        enc_c = codec.encode(params, base)
+        dec_g, dec_c = codec.decode(enc_g, on_card(base)), codec.decode(enc_c, base)
+        torch.cuda.synchronize()
+        values = 0
+        for part in enc_c:
+            for name in enc_c[part]:
+                a, b = enc_g[part][name].cpu(), enc_c[part][name]
+                check(a.dtype == b.dtype and a.shape == b.shape and same_bits(a, b),
+                      f"codec encode {kind}: {part}/{name} differs between card and CPU")
+                values += b.numel()
+        for name in dec_c:
+            check(same_bits(dec_g[name].cpu(), dec_c[name]),
+                  f"codec decode {kind}: {name} differs between card and CPU")
+        out[kind] = {"wire_values": values, "max_abs_err": 0.0}
+    return out
+
+
+def same_bits(a, b):
+    """Equal bit patterns: int8 codes equal, f32 values equal bit for bit
+    (NaN and -0.0 included)."""
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def bits_err(got, want):
+    """max |got - want| over the values whose bits differ (0.0 when all
+    agree; NaN where a NaN meets a number)."""
+    differ = ~(got.view(torch.int32) == want.view(torch.int32)) if got.dtype == torch.float32 \
+        else got != want
+    if not bool(differ.any()):
+        return 0.0
+    return float((got.float() - want.float()).abs()[differ].max())
+
+
+def codec_rows(gen, layout, case, qmax=127, copies=CODEC_COPIES):
+    """(copies, P) f32 payloads blocked by ``layout``. ``case``: "random";
+    "zero" (every other codec block all zero, half of them -0.0); "halves"
+    (each block's amax is qmax * 2**e, so its scale is 2**e and x / scale
+    lands on exact halves); "ties" (a few distinct values with NaN and
+    -0.0 beside +0.0); "sparse" (a few nonzeros per block)."""
+    dev = torch.device("cuda")
+    kw = dict(generator=gen, device=dev)
+    p, nb = layout.num_values, layout.num_blocks
+    rows = torch.randn((copies, p), **kw) * 0.05
+    if case in ("zero", "halves"):               # whole blocks of a dense layout
+        check(p == nb * layout.block, f"{case}: needs a dense layout")
+        blocks = rows.view(copies, nb, layout.block)
+        if case == "zero":
+            blocks[:, ::2] = torch.where(torch.rand((copies, (nb + 1) // 2, 1), **kw) < 0.5,
+                                         -0.0, 0.0)
+        else:
+            e = torch.randint(-12, 12, (copies, nb, 1), **kw).float()
+            m = torch.randint(-qmax, qmax, blocks.shape, **kw).float() + 0.5
+            blocks.copy_(m * torch.exp2(e))
+            blocks[:, :, 0] = qmax * torch.exp2(e[:, :, 0])
+    if case in ("ties", "sparse"):
+        rows = torch.randint(-2, 3, (copies, p), **kw).float()
+        if case == "sparse":
+            rows[torch.rand((copies, p), **kw) < 0.97] = 0.0
+        rows[torch.rand((copies, p), **kw) < 0.02] = float("nan")
+        zero = rows == 0
+        rows[zero] = torch.where(torch.rand((copies, p), **kw) < 0.5, -0.0, 0.0)[zero]
+    return rows
+
+
+def codec_bound(nbytes, ops):
+    bytes_s, ops_s = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOPS
+    return {"bound_ms": 1e3 * max(bytes_s, ops_s),
+            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+            "bound_bytes": nbytes, "bound_ops": ops}
+
+
+def quant_case(dc, name, layout, case, qmax, gen, reps=40):
+    """One shape of the quantisation kernel: codes and scales bitwise against
+    the plain version, then times."""
+    rows = codec_rows(gen, layout, case, qmax)
+    args = [(rows[i % len(rows)], layout, qmax) for i in range(reps)]
+    plain = lambda x, layout, qmax: dc.quant_blocks_plain(dc.blocked(x, layout), qmax)
+    codes, scales = dc.quant_leaves(*args[0])
+    want_c, want_s = plain(*args[0])
+    torch.cuda.synchronize()
+    max_abs_err = max(bits_err(codes, want_c), bits_err(scales, want_s))
+    check(same_bits(codes, want_c) and same_bits(scales, want_s),
+          f"quant {name}: differs from its plain version (max abs err {max_abs_err})")
+    ms = device_ms(dc.quant_leaves, args)
+    plain_ms = device_ms(plain, args[:8])
+    wrapper_call_ms = call_ms(dc.quant_leaves, args)
+    # least bytes: the payload read once, codes and scales written once, the
+    # leaf table read once; least operations: QUANT_OPS_PER_VALUE per value
+    nb, p = layout.num_blocks, layout.num_values
+    nbytes = 4 * p + nb * layout.block + 4 * nb + 16 * (len(layout.names) + 1)
+    return {"case": name, "qmax": qmax, "values": p, "blocks": nb, "leaves": len(layout.names),
+            "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "call_ms": wrapper_call_ms, **codec_bound(nbytes, QUANT_OPS_PER_VALUE * p)}
+
+
+def topk_case(dc, name, layout, case, k, gen, reps=40, with_base=True):
+    """One shape of the top-k kernel: the masked delta bitwise against the
+    plain version, then times. With a base the kernel subtracts it in place;
+    the library yardstick (``torch.topk`` of |d| along the block, then a
+    scatter of the kept values) gets the delta already blocked."""
+    rows = codec_rows(gen, layout, case)
+    bases = codec_rows(gen, layout, "random") if with_base else [None] * len(rows)
+    if k is None:                                # k = the most nonzeros of any block
+        k = max(int((dc.blocked(x, layout) != 0).sum(dim=1).max()) for x in rows)
+    args = [(rows[i % len(rows)], bases[i % len(rows)], layout, k) for i in range(reps)]
+
+    def plain(x, base, layout, k):
+        return dc.topk_blocks_plain(dc.blocked(x if base is None else x - base, layout), k)
+
+    got = dc.topk_leaves(*args[0])
+    want = plain(*args[0])
+    torch.cuda.synchronize()
+    max_abs_err = bits_err(got, want)
+    check(same_bits(got, want), f"topk {name}: differs from its plain version "
+                                f"(max abs err {max_abs_err})")
+    if case == "sparse":                         # k >= nnz keeps every value (a -0.0
+        d = dc.blocked(args[0][0], layout)       # past rank k becomes +0.0)
+        check(bool(((got == d) | (got.isnan() & d.isnan())).all()),
+              f"topk {name}: k >= nnz lost a value")
+
+    def library(d, k):                           # timing only: ties go anywhere
+        idx = torch.topk(d.abs(), k, dim=1).indices
+        return torch.zeros_like(d).scatter_(1, idx, d.gather(1, idx))
+
+    deltas = [dc.blocked(x if b is None else x - b, layout) for x, b, _, _ in args[:CODEC_COPIES]]
+    ms = device_ms(dc.topk_leaves, args)
+    # the plain version launches about 8 kernels per 1,024 blocks: one call,
+    # or the queue behind the spin fills and blocks the host
+    plain_ms = device_ms(plain, args[:1])
+    library_ms = device_ms(library, [(d, min(k, layout.block)) for d in deltas])
+    wrapper_call_ms = call_ms(dc.topk_leaves, args)
+    # least bytes: payload (and base) read once, the masked delta written once,
+    # the leaf table read once; operations: the dense rank's compares
+    nb, p = layout.num_blocks, layout.num_values
+    nbytes = (8 if with_base else 4) * p + 4 * nb * layout.block + 16 * (len(layout.names) + 1)
+    return {"case": name, "k": k, "values": p, "blocks": nb, "leaves": len(layout.names),
+            "with_base": with_base, "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library": "torch.topk(|d|, k, dim=1) + scatter",
+            "call_ms": wrapper_call_ms,
+            **codec_bound(nbytes, nb * layout.block * layout.block)}
+
+
+def phase_codec_kernel(dc):
+    """Phase 1d: both codec kernels at the main path's shape (the paper's
+    CNN blocked leaf by leaf), a ragged model, all-zero blocks, exact halves,
+    ties with NaN and -0.0, k >= nnz and a 4x scale."""
+    from repro_torch.core.aggregation import leaf_shapes
+    from repro_torch.fl.tasks import CNNTask
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    main = dc.leaf_layout(leaf_shapes(CNNTask().init(0, "cpu")))
+    check(main.num_blocks == MAIN_CODEC_BLOCKS and main.num_values == MAIN_P,
+          f"the CNN blocks into {main.num_blocks} codec blocks, not {MAIN_CODEC_BLOCKS}")
+    ragged = dc.leaf_layout(tuple((f"l{i}", (n,)) for i, n in
+                                  enumerate((1, 127, 0, 129, 1_000_003, 77))))
+    dense = dc.dense_layout(MAIN_CODEC_BLOCKS, dc.BLOCK)
+    scale = dc.dense_layout(4 * MAIN_CODEC_BLOCKS, dc.BLOCK)
+    quant, topk = [], []
+    for kind, qmax in (("int8", 127), ("int4", 7)):
+        quant += [
+            quant_case(dc, f"main_{kind}", main, "random", qmax, gen),
+            quant_case(dc, f"ragged_{kind}", ragged, "random", qmax, gen),
+            quant_case(dc, f"zero_blocks_{kind}", dense, "zero", qmax, gen),
+            quant_case(dc, f"halves_{kind}", dense, "halves", qmax, gen),
+            quant_case(dc, f"scale_4x_{kind}", scale, "random", qmax, gen, reps=20),
+        ]
+    topk += [
+        topk_case(dc, "main", main, "random", 8, gen),
+        topk_case(dc, "ragged", ragged, "random", 8, gen),
+        topk_case(dc, "ties_nan_zeros", dense, "ties", 8, gen, with_base=False),
+        topk_case(dc, "k_ge_nnz", dense, "sparse", None, gen, with_base=False),
+        topk_case(dc, "k_128", ragged, "random", 128, gen),
+        topk_case(dc, "scale_4x", scale, "random", 8, gen, reps=20, with_base=False),
+    ]
+    torch.cuda.empty_cache()
+    return quant, topk
 
 
 def dedup_case(ck, name, r, s, c, classes, special, gen, reps=40):
@@ -769,7 +1062,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     from repro_torch.device import resolve_device
-    from repro_torch.kernels import chunk_transfer, cuda_build, fedavg
+    from repro_torch.kernels import chunk_transfer, cuda_build, delta_codec, fedavg
     from repro_torch.kernels import gossip_merge
 
     resolve_device("cuda")
@@ -797,12 +1090,19 @@ def main() -> int:
         print(json.dumps({"profile_gossip": phase_profile("run_dagfl_gossip")}))
 
         print(json.dumps({"digests": phase_digests()}))
-        bank_paths = phase_bank_main_path(cuda_build, bankless)
+        bank_paths, table1 = phase_bank_main_path(cuda_build, bankless)
         del bankless
         print(json.dumps({"bank_main_path": bank_paths}))
         print(json.dumps({"profile_bank": phase_profile(
             "run_dagfl_gossip", label="run_dagfl_gossip(bank_gossip, Table I)",
             **bank_runs()["table1"])}))
+
+        codec_paths = phase_codec_main_path(cuda_build, table1)
+        del table1
+        print(json.dumps({"codec_main_path": codec_paths}))
+        print(json.dumps({"profile_codec": phase_profile(
+            "run_dagfl_gossip", label="run_dagfl_gossip(bank_gossip, 1 Mbit/s, int4)",
+            **constrained_runs()["int4"])}))
 
         small = phase_small_agreement()
         print(json.dumps({"small_agreement": small}))
@@ -810,10 +1110,18 @@ def main() -> int:
         print(json.dumps({"small_gossip_agreement": small_gossip}))
         small_bank = phase_small_bank_agreement()
         print(json.dumps({"small_bank_agreement": small_bank}))
+        small_codec = phase_small_bank_agreement(delta_codec.DeltaCodec("int8"))
+        print(json.dumps({"small_codec_agreement": small_codec}))
+        print(json.dumps({"codec_encode_agreement": phase_codec_encode_agreement()}))
         gossip_cases = phase_gossip_kernel(gossip_merge)
         print(json.dumps({"gossip_cases": gossip_cases}))
         dedup_cases = phase_dedup_kernel(chunk_transfer)
         print(json.dumps({"dedup_cases": dedup_cases}))
+        t = time.perf_counter()
+        quant_cases, topk_cases = phase_codec_kernel(delta_codec)
+        print(json.dumps({"quant_cases": quant_cases}))
+        print(json.dumps({"topk_cases": topk_cases}))
+        print(f"[phase 1d] codec kernels vs plain: {time.perf_counter() - t:.1f} s")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -866,6 +1174,25 @@ def main() -> int:
         "bound_by": dedup_main["bound_by"],
         "library_ms": dedup_main["library_ms"],   # torch.bmm against the equality table
     })
+    for name, cases, main_name, run, line in (
+            ("quant_blocks", quant_cases, "main_int8", "1mbps_int8", 76),
+            ("topk_blocks", topk_cases, "main", "1mbps_topk", 123)):
+        main_case = next(c for c in cases if c["case"] == main_name)
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/delta_codec.cu",
+            "replaces": f"src/repro/kernels/delta_codec.py:{line}",
+            "launches": codec_paths[run]["launches"].get(name, 0),
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": main_case["ms"],
+            "kernel_ms": main_case["ms"],
+            "call_ms": main_case["call_ms"],
+            "plain_ms": main_case["plain_ms"],
+            "bound_ms": main_case["bound_ms"],
+            "bound_by": main_case["bound_by"],
+            "library_ms": main_case["library_ms"],   # quant: none; topk: torch.topk + scatter
+        })
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

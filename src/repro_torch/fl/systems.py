@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import DagFLConfig
+from repro_torch.core.aggregation import unflatten_params
 from repro_torch.core.anomaly import contribution_rates
 from repro_torch.core.consensus import commit_prepared, make_dagfl_stages
 from repro_torch.core.controller import Controller
@@ -409,11 +410,26 @@ class _GossipLedger:
         rows = prepared.chosen_rows
         credited = dag_i.approvers[rows.clamp(min=0).long(), node_id]
         self._issued += ((rows >= 0) & ~credited).sum()
+        # wire compression: encode against the slot's content before the
+        # overwrite, store (and tag) the DECODED wire values, so the codec's
+        # error enters training once, here, and digest the ENCODED form. The
+        # identity codec skips all of it (the reference tests is_identity,
+        # not codec_key: a ratio-1.0 topk still encodes)
+        slot = self.seq % self.capacity
+        codec = self.net.bank_cfg.codec if self.net.bank_cfg is not None else None
+        if codec is not None and not codec.is_identity:
+            # views of the slot's row, read in stream order before the write
+            # below (an int index: no host-to-device copy, no sync)
+            base = unflatten_params(self.net.bank.rows[slot], self.net.bank.shapes)
+            enc = codec.encode(prepared.new_params, base)
+            prepared = prepared._replace(new_params=codec.decode(enc, base))
+        else:
+            enc = prepared.new_params
         dag_i, bank = _gossip_commit(dag_i, self.net.bank, node_id, t1, prepared, self.seq)
         self.net.write(node_id, dag_i, bank)
         # transport accounting: the committer holds its own payload's chunks;
         # the ring-reused slot's old content leaves everyone else
-        self.net.bank_commit(node_id, self.seq % self.capacity, prepared.new_params)
+        self.net.bank_commit(node_id, slot, enc)
         self.seq += 1
 
     def union_dag(self):
@@ -486,11 +502,16 @@ def run_dagfl_gossip(
     rows whose payload has arrived, and ``extras`` gains
     ``bank_missing_final``, ``bank_bytes_sent`` and ``bank_lag_curve``.
 
+    With ``bank_gossip.codec`` (a ``repro_torch.kernels.delta_codec.
+    DeltaCodec``) each commit is encoded against its slot's last content
+    (one codec kernel launch), the store keeps the decoded values and the
+    chunks are priced at their encoded size.
+
     ``draw`` and ``edge_draw`` replace the tip-selection and edge draws
     (``run_dagfl``, ``repro_torch.net.gossip``). ``mesh``,
-    ``engine="events"``, ``obs``, ``faults``, ``serve`` and a bank codec
-    are not ported yet and raise ``NotImplementedError``, alone or with
-    ``bank_gossip``.
+    ``engine="events"``, ``obs``, ``faults`` and ``serve`` are not ported
+    yet and raise ``NotImplementedError``, alone or with ``bank_gossip`` and
+    its codec.
     """
     gossip_lib._unported(mesh=(mesh, "ROADMAP A.12"), obs=(obs, "ROADMAP A.9"),
                          faults=(faults, "ROADMAP A.10"), serve=(serve, "ROADMAP A.11"))

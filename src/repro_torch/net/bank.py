@@ -37,22 +37,28 @@ deterministic and draws nothing.
 A commit overwriting slot s resets every other node's presence bits for s
 and re-digests it (``commit_chunks``).
 
-Wire compression (the reference's ``BankGossipConfig.codec``) is not ported
-yet: a config with a codec raises ``NotImplementedError`` (ROADMAP A.7).
+Wire compression (``BankGossipConfig.codec``, ``repro_torch.kernels.
+delta_codec``): with a codec the FL driver encodes every commit before it
+reaches the store. The store slot holds the decoded wire values, so the
+codec's error enters training once, at commit; ``commit_chunks`` digests the
+ENCODED wire form (``chunk_digests`` flattens it leaf by leaf), and the
+engines price each chunk at ``chunk_bytes * wire_ratio()``. ``codec=None``
+and every codec that prices like raw bytes (``delta_codec.codec_key``) keep
+the uncompressed path untouched.
 """
 from __future__ import annotations
 
 import functools
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, NamedTuple, Optional
+from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.core.aggregation import flatten_params
 from repro_torch.core.bank import Bank
 from repro_torch.core.dag import DagState
 from repro_torch.kernels import chunk_transfer as ck
+from repro_torch.kernels.delta_codec import DeltaCodec
 
 _INT32_MAX = torch.iinfo(torch.int32).max
 # the largest float32 below 2**31: what clamps safely into int32
@@ -66,7 +72,9 @@ class BankGossipConfig:
     ``chunks_per_slot`` — byte ranges per bank slot (the transfer granule).
     ``slot_bytes`` — payload size per slot for pricing; None measures the
     model (``slot_nbytes``), Table-I realism passes ``7e6`` (phi = 7 MB).
-    ``codec`` — wire compression: only None is ported (ROADMAP A.7).
+    ``codec`` — wire compression for commits
+    (``repro_torch.kernels.delta_codec.DeltaCodec``); None ships raw f32
+    chunks.
 
     The reference's ``impl`` (Pallas or lax dedup) has no counterpart: the
     dedup reduction takes the kernel on a card and its plain version on the
@@ -75,7 +83,7 @@ class BankGossipConfig:
 
     chunks_per_slot: int = 4
     slot_bytes: Optional[float] = None
-    codec: Optional[Any] = None
+    codec: Optional[DeltaCodec] = None
 
 
 class BankState(NamedTuple):
@@ -111,11 +119,11 @@ def _projection(per: int, device: torch.device) -> torch.Tensor:
 def _digest_flat(flat: torch.Tensor, chunks: int) -> torch.Tensor:
     """(chunks,) f32 digests of one flat f32 payload (P,).
 
-    The one routine behind both ``chunk_digests`` and ``bank_digests``: a
-    fresh zero-padded (chunks, per) copy times the fixed projection, always
-    in this shape, so equal payloads get bitwise-equal digests whichever
-    path digests them (a batched product over many slots may reduce in
-    another order).
+    The one routine behind ``chunk_digests`` (of a model or of a codec's
+    wire form) and ``bank_digests``: a fresh zero-padded (chunks, per) copy
+    times the fixed projection, always in this shape, so equal payloads get
+    bitwise-equal digests whichever path digests them (a batched product
+    over many slots may reduce in another order).
     """
     n = flat.shape[0]
     per = -(-n // chunks)                       # ceil; zero-pad the tail
@@ -124,15 +132,35 @@ def _digest_flat(flat: torch.Tensor, chunks: int) -> torch.Tensor:
     return padded.view(chunks, per) @ _projection(per, flat.device)
 
 
-def chunk_digests(params: Dict[str, torch.Tensor], chunks: int) -> torch.Tensor:
-    """(chunks,) f32 content digests of one model payload.
+def _leaves_flat(tree) -> torch.Tensor:
+    """One f32 vector of a payload's leaves in ``jax.tree_util.tree_leaves``
+    order: a model (a dict of leaves) in sorted-name order, and a codec's wire
+    form (a dict of such dicts) key by key — int8 codes as their f32 values,
+    so the int8 wire form of the paper's CNN is its 1,663,744 codes, then its
+    12,998 scales."""
+    leaves = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            for key in sorted(node):
+                walk(node[key])
+        else:
+            leaves.append(node.reshape(-1).float())
+
+    walk(tree)
+    return torch.cat(leaves)
+
+
+def chunk_digests(params, chunks: int) -> torch.Tensor:
+    """(chunks,) f32 content digests of one payload: a model, or the wire
+    form of a codec (``DeltaCodec.encode``).
 
     The payload flattened in the reference's leaf order, split into
     ``chunks`` equal ranges (zero-padded), each tagged with a fixed
     pseudo-random projection: identical content gives identical digests,
     and any bit flip moves one.
     """
-    return _digest_flat(flatten_params(params), chunks)
+    return _digest_flat(_leaves_flat(params), chunks)
 
 
 def bank_digests(bank: Bank, chunks: int) -> torch.Tensor:
@@ -151,13 +179,13 @@ def init_bank_state(num_replicas: int, slots: int, chunks: int, device=None) -> 
     )
 
 
-def commit_chunks(have: torch.Tensor, digest: torch.Tensor, params: Dict[str, torch.Tensor],
-                  slot: int, node_id: int):
+def commit_chunks(have: torch.Tensor, digest: torch.Tensor, params, slot: int, node_id: int):
     """Account a stage-4 commit overwriting store ``slot`` with ``params``.
 
     The committer holds the new content; everyone else's presence bits for
-    the slot reset; the slot's digest row is re-derived. Returns new
-    ``(have, digest)`` and leaves its inputs as they were.
+    the slot reset; the slot's digest row is re-derived. ``params`` is only
+    digested here, so a driver with a codec passes the ENCODED wire form.
+    Returns new ``(have, digest)`` and leaves its inputs as they were.
     """
     have, digest = have.clone(), digest.clone()
     have[:, slot, :] = False
@@ -183,8 +211,12 @@ def referenced_slots(dags: DagState, slots: int) -> torch.Tensor:
 def _afford(budget: torch.Tensor, chunk_bytes: float) -> torch.Tensor:
     """(.., ..) int32 whole chunks a budget buys, clipped to [0, int32 max]
     with the reference's saturating cast: an infinite budget (the ideal
-    wire) gives int32 max, where a plain cast would give int32 min."""
-    whole = torch.floor(budget / chunk_bytes).clamp(min=0.0)
+    wire) gives int32 max, where a plain cast would give int32 min.
+
+    The granule divides as a tensor: PyTorch's CUDA division by a Python
+    scalar multiplies by its reciprocal, and a budget of exactly m chunks
+    could then floor to m - 1."""
+    whole = torch.floor(budget / torch.full_like(budget, chunk_bytes)).clamp(min=0.0)
     return torch.where(whole >= 2.0 ** 31, _INT32_MAX,
                        whole.clamp(max=_F32_BELOW_2_31).to(torch.int32))
 

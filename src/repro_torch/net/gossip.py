@@ -36,11 +36,15 @@ every tick also moves model payload availability. Rows merge first, then
 the chunk step runs on the post-merge replicas over the same edge mask,
 priced per directed link; ``read_view`` gates a node's view on payload
 arrival and ``converge`` also waits for every referenced chunk. With
-unlimited capacity the whole trajectory is bitwise the bankless one.
+unlimited capacity the whole trajectory is bitwise the bankless one. With
+``bank_cfg.codec`` set (``repro_torch.kernels.delta_codec``) every tick
+prices a chunk at its encoded size, ``chunk_bytes * wire_ratio()``; the
+identity codec keeps the raw granule.
 
-Only the ticks engine, with or without bank gossip, and without telemetry,
-faults, serving, a codec or a mesh is ported; ``GossipNetwork`` raises
-``NotImplementedError`` naming the ROADMAP item for each of those options.
+Only the ticks engine, with or without bank gossip and its codec, and
+without telemetry, faults, serving or a mesh is ported; ``GossipNetwork``
+raises ``NotImplementedError`` naming the ROADMAP item for each of those
+options.
 """
 from __future__ import annotations
 
@@ -54,6 +58,7 @@ import torch
 from repro_torch.core import dag as dag_lib
 from repro_torch.core.dag import DagState
 from repro_torch.kernels import chunk_transfer as chunk_kernel
+from repro_torch.kernels import delta_codec
 from repro_torch.kernels import gossip_merge as gossip_kernel
 from repro_torch.net import bank as bank_lib
 from repro_torch.net import replica as replica_lib
@@ -262,8 +267,7 @@ class GossipNetwork:
         edge_draw: Optional[EdgeDraw] = None,
     ):
         _unported(mesh=(mesh, "ROADMAP A.12"), obs_cfg=(obs_cfg, "ROADMAP A.9"),
-                  faults_cfg=(faults_cfg, "ROADMAP A.10"), serve_cfg=(serve_cfg, "ROADMAP A.11"),
-                  codec=(getattr(bank_cfg, "codec", None), "ROADMAP A.7"))
+                  faults_cfg=(faults_cfg, "ROADMAP A.10"), serve_cfg=(serve_cfg, "ROADMAP A.11"))
         if cfg.engine == "events":
             raise NotImplementedError("engine='events' is not ported yet (ROADMAP A.8)")
         if cfg.engine != "ticks":
@@ -309,6 +313,13 @@ class GossipNetwork:
                   else float(bank_cfg.slot_bytes))
         # the reference's f32 granule, held as the Python float of that value
         self._chunk_bytes = float(np.float32(max(slot_b / c, 1e-9)))
+        # what a tick charges per chunk: the codec's encoded size, an f32
+        # product as in the reference's _codec_tick; codec_key is None for
+        # every codec that prices like raw bytes, which keeps the raw granule
+        self._codec = delta_codec.codec_key(bank_cfg.codec)
+        self._wire_chunk_bytes = (
+            self._chunk_bytes if self._codec is None
+            else float(np.float32(self._chunk_bytes) * np.float32(self._codec.wire_ratio())))
         self._digest = bank_lib.bank_digests(bank, c)
         # per-tick, per-directed-link byte budget: Table-I bits/s over one
         # sync period; sync_period <= 0 is the ideal wire, where payload
@@ -378,10 +389,14 @@ class GossipNetwork:
                                        self._digest).cpu().numpy()
 
     def bytes_sent(self) -> float:
-        """Total payload bytes delivered so far (the Table-I traffic bill)."""
+        """Total payload bytes delivered so far (the Table-I traffic bill).
+
+        An f32 sum, as the reference's, taken on the host: a sum on the card
+        adds in another order, and with a codec's non-integral chunk prices
+        (451,171.875 B for int8) the order shows in the total."""
         if self.bank_cfg is None:
             return 0.0
-        return float(self.replicas.bank_state.sent.sum())
+        return float(self.replicas.bank_state.sent.cpu().sum())
 
     def union(self) -> DagState:
         return replica_lib.merge_all(self.replicas.dags)
@@ -425,7 +440,7 @@ class GossipNetwork:
         if bstate is None:
             return _apply_round(dags, edges, self._nbr_idx, self._nbr_valid, self.cfg.impl), None
         return _bank_tick_single(dags, bstate, self._digest, edges, self._nbr_idx,
-                                 self._nbr_valid, self._cap_bytes, self._chunk_bytes,
+                                 self._nbr_valid, self._cap_bytes, self._wire_chunk_bytes,
                                  self.cfg.impl)
 
     def _advance_window(self, ticks, part_active) -> None:

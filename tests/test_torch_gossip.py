@@ -35,6 +35,7 @@ from repro_torch.fl import experiments as t_exp
 from repro_torch.fl import systems as t_sys
 from repro_torch.fl import tasks as t_tasks
 from repro_torch.kernels import gossip_merge as t_gm
+from repro_torch.kernels.delta_codec import DeltaCodec
 from repro_torch.net import gossip as t_gossip
 from repro_torch.net.bank import BankGossipConfig
 from repro_torch.net import replica as t_replica
@@ -496,7 +497,9 @@ def test_ideal_wire_equals_run_dagfl(impl):
 
 
 @pytest.mark.parametrize("option", [
-    dict(mesh=object()), dict(bank_gossip=BankGossipConfig(codec=object())),
+    dict(mesh=object()), dict(bank_gossip=BankGossipConfig(codec=DeltaCodec("int8")),
+                              engine="events"),
+    dict(bank_gossip=BankGossipConfig(codec=DeltaCodec("int4")), faults=object()),
     dict(bank_gossip=BankGossipConfig(), faults=object()), dict(engine="events"),
     dict(obs=object()), dict(faults=object()), dict(serve=object()),
     dict(gossip=t_gossip.GossipConfig(engine="events")),
@@ -511,7 +514,10 @@ def test_unported_options_raise(option):
 def test_unported_network_parts_raise():
     dag = dag_to_t(_genesis(3))
     top = t_topo.ring(3)
-    for kw in (dict(mesh=object()), dict(bank_cfg=BankGossipConfig(codec=object())),
+    for kw in (dict(mesh=object()),
+               dict(bank_cfg=BankGossipConfig(codec=DeltaCodec("int8")),
+                    cfg=t_gossip.GossipConfig(engine="events")),
+               dict(bank_cfg=BankGossipConfig(codec=DeltaCodec("topk")), faults_cfg=object()),
                dict(bank_cfg=BankGossipConfig(), faults_cfg=object()), dict(obs_cfg=object()),
                dict(faults_cfg=object()), dict(serve_cfg=object()),
                dict(cfg=t_gossip.GossipConfig(engine="events"))):

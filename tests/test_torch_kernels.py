@@ -23,6 +23,12 @@ the reference in ``tests/test_torch_gossip.py``.
 The chunk dedup, ``kernels/chunk_transfer.py``: a bitmap, so the kernel must
 equal the plain version bitwise (``test_chunk_dedup_kernel_on_card``); the
 plain version is held against the reference in ``tests/test_torch_bank.py``.
+
+The wire codec, ``kernels/delta_codec.py``: codes, scales and masked deltas
+must equal the plain versions bitwise (``test_quant_kernel_on_card``,
+``test_topk_kernel_on_card``, ``test_encode_on_card_equals_the_cpu``); the
+plain versions are held against the reference in
+``tests/test_torch_codec.py``.
 """
 import numpy as np
 import pytest
@@ -31,6 +37,7 @@ import torch
 from repro_torch.core import aggregation as t_agg
 from repro_torch.core import bank as t_bank
 from repro_torch.kernels import chunk_transfer as t_ck
+from repro_torch.kernels import delta_codec as t_dc
 from repro_torch.kernels import cuda_build
 from repro_torch.kernels import fedavg as t_fedavg
 from repro_torch.kernels import gossip_merge as t_gm
@@ -326,3 +333,139 @@ def test_chunk_dedup_kernel_on_card(cuda, r, s, c, classes):
         t_ck.chunk_dedup(have, dig.double())
     with pytest.raises(ValueError):
         t_ck.chunk_dedup(have, dig[:-1])
+
+
+# ---------------------------------------------------------------------------
+# the wire codec
+# ---------------------------------------------------------------------------
+
+# leaf sizes: the paper's CNN (8 leaves, 12,998 blocks), a ragged model with a
+# one-value leaf and an empty one, and a dense matrix of whole blocks
+CNN_SIZES = (32, 64, 512, 10, 800, 51_200, 1_605_632, 5_120)
+RAGGED_SIZES = (1, 127, 0, 129, 100_003)
+
+
+def codec_payload(gen, sizes, case, device):
+    """A flat payload and its leaf-by-leaf layout. ``case``: "random",
+    "zero" (every other leaf all zero), "halves" (x / scale lands on exact
+    halves: amax = 127 * 2**e makes scale = 2**e), "ties" (few distinct
+    values, NaN, -0.0 beside +0.0), "sparse" (a few nonzeros per block)."""
+    layout = t_dc.leaf_layout(tuple((f"l{i:02d}", (n,)) for i, n in enumerate(sizes)))
+    n = layout.num_values
+    kw = dict(generator=gen, device=device)
+    x = torch.randn(n, **kw) * 0.05
+    if case == "zero":
+        for i, (v0, v1) in enumerate(zip(layout.first_value, layout.first_value[1:])):
+            if i % 2:
+                x[v0:v1] = 0.0
+    if case == "halves":
+        blocks = t_dc.blocked(x, layout)
+        e = torch.randint(-10, 10, (blocks.shape[0], 1), **kw).float()
+        m = torch.randint(-127, 127, blocks.shape, **kw).float() + 0.5
+        blocks = m * torch.exp2(e)
+        blocks[:, 0] = 127 * torch.exp2(e[:, 0])
+        x = torch.cat([blocks[b0:b1].reshape(-1)[:v1 - v0] for b0, b1, v0, v1 in zip(
+            layout.first_block, layout.first_block[1:], layout.first_value,
+            layout.first_value[1:])])
+    if case in ("ties", "sparse"):
+        x = torch.randint(-2, 3, (n,), **kw).float()
+        if case == "sparse":
+            x[torch.rand(n, **kw) < 0.97] = 0.0
+        x[torch.rand(n, **kw) < 0.02] = float("nan")
+        zero = x == 0
+        x[zero] = torch.where(torch.rand(n, **kw) < 0.5, -0.0, 0.0)[zero]
+    return x.contiguous(), layout
+
+
+def same_bits(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_codec_wrappers_launch_nothing_off_the_card():
+    gen = torch.Generator().manual_seed(0)
+    x, layout = codec_payload(gen, RAGGED_SIZES, "random", "cpu")
+    before = dict(cuda_build.LAUNCHES)
+    codes, scales = t_dc.quant_leaves(x, layout, 127)
+    assert codes.shape == (layout.num_blocks, t_dc.BLOCK) and scales.shape == (layout.num_blocks,)
+    assert t_dc.topk_leaves(x, x.flip(0), layout, 8).shape == codes.shape
+    assert dict(cuda_build.LAUNCHES) == before
+    assert layout.num_blocks == 1 + 1 + 1 + 2 + 782        # an empty leaf is one zero block
+    meta = torch.empty((2, t_dc.BLOCK), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        t_dc.quant_blocks(meta, 127)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        t_dc.topk_blocks(meta, 8)
+    source = cuda_build.CSRC / "delta_codec.cu"
+    assert source.exists() and cuda_build.build_command("nvcc", source, "x.so")[-1] == str(source)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes,case", [(CNN_SIZES, "random"), (RAGGED_SIZES, "random"),
+                                        (RAGGED_SIZES, "zero"), (CNN_SIZES, "halves"),
+                                        (RAGGED_SIZES, "ties")])
+@pytest.mark.parametrize("qmax", [127, 7])
+def test_quant_kernel_on_card(cuda, sizes, case, qmax):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(len(sizes) + qmax)
+    x, layout = codec_payload(gen, sizes, case, cuda)
+    before = cuda_build.LAUNCHES[t_dc.QUANT_NAME]
+    codes, scales = t_dc.quant_leaves(x, layout, qmax)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES[t_dc.QUANT_NAME] == before + 1
+    want_c, want_s = t_dc.quant_blocks_plain(t_dc.blocked(x, layout), qmax)
+    finite = ~torch.isnan(t_dc.blocked(x, layout))        # NaN codes are not specified
+    assert torch.equal(codes[finite], want_c[finite]) and same_bits(scales, want_s)
+    dense_c, dense_s = t_dc.quant_blocks(t_dc.blocked(x, layout), qmax)
+    assert torch.equal(dense_c[finite], want_c[finite]) and same_bits(dense_s, want_s)
+    with pytest.raises(ValueError):
+        t_dc.quant_leaves(x[:-1], layout, qmax)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes,case,k", [(CNN_SIZES, "random", 8), (RAGGED_SIZES, "ties", 8),
+                                          (RAGGED_SIZES, "sparse", 8), (CNN_SIZES, "random", 1),
+                                          (RAGGED_SIZES, "random", 128),
+                                          (RAGGED_SIZES, "zero", 8)])
+def test_topk_kernel_on_card(cuda, sizes, case, k):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(len(sizes) + k)
+    x, layout = codec_payload(gen, sizes, case, cuda)
+    base = x.flip(0).contiguous() * 0.5
+    before = cuda_build.LAUNCHES[t_dc.TOPK_NAME]
+    got = t_dc.topk_leaves(x, base, layout, k)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES[t_dc.TOPK_NAME] == before + 1
+    assert same_bits(got, t_dc.topk_blocks_plain(t_dc.blocked(x - base, layout), k))
+    d = t_dc.blocked(x, layout)
+    assert same_bits(t_dc.topk_blocks(d, k), t_dc.topk_blocks_plain(d, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "int4", "topk"])
+def test_encode_on_card_equals_the_cpu(cuda, kind):
+    from repro_torch.fl.tasks import CNNTask
+
+    params = {k: v + 0.01 * torch.randn_like(v) for k, v in CNNTask().init(0, "cpu").items()}
+    base = {k: v * 0.9 for k, v in params.items()}
+    codec = t_dc.DeltaCodec(kind)
+    on_card = codec.encode({k: v.to(cuda) for k, v in params.items()},
+                           {k: v.to(cuda) for k, v in base.items()})
+    on_cpu = codec.encode(params, base)
+    for part in on_cpu:
+        for name in on_cpu[part]:
+            a, b = on_card[part][name].cpu(), on_cpu[part][name]
+            assert a.dtype == b.dtype and (torch.equal(a, b) if a.dtype == torch.int8
+                                           else same_bits(a, b)), (part, name)
+
+
+@pytest.mark.cuda
+def test_afford_divides_exactly_on_card(cuda):
+    """A budget of exactly m chunks buys m chunks on the card as on the CPU,
+    for the raw and the encoded granules of the 7 MB model."""
+    from repro_torch.net import bank as t_net_bank
+
+    for chunk in (1_750_000.0, 451_171.875, 232_421.875, 218_750.0, 3.0, 0.1):
+        chunk = float(np.float32(chunk))
+        budget = torch.arange(0, 4096, dtype=torch.float32) * np.float32(chunk)
+        got = t_net_bank._afford(budget.to(cuda), chunk).cpu()
+        assert torch.equal(got, t_net_bank._afford(budget, chunk)), chunk
