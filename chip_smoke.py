@@ -21,17 +21,24 @@ builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (into
    Table-I pricing (100 Mbit/s links, 7 MB models); then (2d) the wire
    codec: the Table-I run with the identity codec (which must equal the
    codec-less one) and the 1 Mbit/s class raw and with the int8, int4 and
-   top-k codecs (one codec launch per commit); each path under
-   ``torch.profiler`` too, shorter;
+   top-k codecs (one codec launch per commit); then (2e) the continuous-time
+   event engine, ``run_dagfl_gossip(engine="events")``: (a) with the
+   defaults, which must equal the ticks run bitwise, (b) with the unlimited
+   bank, which must equal (a), (c) the 1 Mbit/s class with 0.5 s links, raw
+   and int4, beside the ticks runs of the same config, (d) a jittered
+   8-regular overlay, cut in depth; and (2f) the §IV in-system tip
+   simulation at Table-I size and at the reference's bench point; each
+   path under ``torch.profiler`` too, shorter;
 3. runs a small ``run_dagfl``, a small ``run_dagfl_gossip`` (a lossy ring
    with a partition), a small banked one (the same ring, starved) and the
    same with the int8 codec on the card and on the CPU with the same draws
-   and checks that they agree; and encodes the same full-width payloads on
-   the card and on the CPU, bitwise.
+   and checks that they agree; encodes the same full-width payloads on the
+   card and on the CPU, bitwise; and (3e) the same small runs on the events
+   engine (jittered links) and a small tip simulation, card against CPU.
 
-Phase 1 of the merge-winner, chunk-dedup and codec kernels runs last, after
-phase 3; the digest check (bank table against one payload, bitwise) runs
-before phase 2c.
+Phase 1 of the merge-winner, chunk-dedup, codec and event-queue kernels runs
+last, after phase 3; the digest check (bank table against one payload,
+bitwise) runs before phase 2c.
 
 Prints one JSON line of kernel numbers, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, on
@@ -76,6 +83,16 @@ F32_TOL = 1e-5              # kernel vs plain, f32: fma vs multiply-then-add
 ITERATIONS = 200
 EVAL_EVERY = 50
 PROFILED_ITERATIONS = 40
+MAIN_EDGES = MAIN_NODES * (MAIN_NODES - 1)   # directed edges of full(100): the delivery slots
+EVENT_POP_BYTES_PER_SLOT = 13   # f32 time, i32 kind, i32 seq, bool valid
+POP_COLD_BYTES = 64_000_000     # the queues a cold event_pop timing cycles through (> 50 MB L2)
+# path (d), the jittered 8-regular overlay: ~550 single-link batches per
+# simulated second, so its depth is cut to keep the phase near 90 s
+JITTER_ITERATIONS = 60
+TIP_SIM_F = 1.5e9               # the mean of Table I's f range: h = 2.08 s
+TIP_SIM_HORIZON = 600.0
+TIP_SIM_PENDING = 64            # simulate_insystem_tips' max_pending
+TIP_SIM_SEEDS = (0, 1, 2, 3, 4, 5)
 SPIN_CYCLES = 40_000_000    # about 20 ms at the H100's 1.98 GHz boost clock
 
 
@@ -326,9 +343,10 @@ def phase_main_path(cuda_build):
     }
 
 
-def phase_gossip_main_path(cuda_build):
+def phase_gossip_main_path(cuda_build, label="gossip", iterations=ITERATIONS, **options):
     """The main path's second half: ``run_dagfl_gossip`` with its defaults
-    (full overlay, sync period 1 s, ticks engine, fused round) at full width."""
+    (full overlay, sync period 1 s, ticks engine, fused round) at full width;
+    ``options`` go to the entry point (the events engine, another overlay)."""
     from repro_torch.configs.dagfl_paper_tasks import CNN_TASK
     from repro_torch.fl.systems import SimConfig, run_dagfl_gossip
     from repro_torch.fl.tasks import CNNTask
@@ -336,13 +354,13 @@ def phase_gossip_main_path(cuda_build):
     dcfg = CNN_TASK.dagfl
     task = CNNTask()
     nodes, gval = paper_setup(dcfg.num_nodes, task.image_size)
-    sim = SimConfig(iterations=ITERATIONS, eval_every=EVAL_EVERY, minibatch=dcfg.minibatch)
+    sim = SimConfig(iterations=iterations, eval_every=EVAL_EVERY, minibatch=dcfg.minibatch)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_build.LAUNCHES.clear()
     t = time.perf_counter()
-    res = run_dagfl_gossip(task, nodes, dcfg, sim, gval, device="cuda")
+    res = run_dagfl_gossip(task, nodes, dcfg, sim, gval, device="cuda", **options)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t
     launches = dict(cuda_build.LAUNCHES)
@@ -353,25 +371,21 @@ def phase_gossip_main_path(cuda_build):
     check(replicas.publisher.is_cuda and replicas.approvers.is_cuda, "replicas are not on the card")
     check(tuple(replicas.publisher.shape) == (MAIN_NODES, MAIN_SLOTS),
           f"replicas {tuple(replicas.publisher.shape)}")
-    check(int(union.count) == ITERATIONS + 1, f"union count {int(union.count)} != {ITERATIONS + 1}")
-    check(ex["sync_rounds"] > 0, "no sync round ran")
-    check(len(res.accs) > 0 and bool(np.isfinite(res.accs).all()), f"accuracies {res.accs}")
+    check(int(union.count) == iterations + 1,
+          f"{label}: union count {int(union.count)} != {iterations + 1}")
+    check(ex["sync_rounds"] > 0, f"{label}: no sync round ran")
+    check(len(res.accs) > 0 and bool(np.isfinite(res.accs).all()), f"{label}: accuracies {res.accs}")
     params = res.final_params
     check(sum(p.numel() for p in params.values()) == MAIN_P, "CNNTask() is not full width")
-    check(all(bool(torch.isfinite(p).all()) for p in params.values()), "non-finite params")
-    # one winner launch per executed round, one per union fold: each
-    # controller check folds once, and so does the mid-run counter snapshot
-    expected = ex["sync_rounds"] + ex["checks"] + 1
-    check(launches.get("gossip_winner", 0) == expected,
-          f"gossip_winner launched {launches.get('gossip_winner', 0)} times, expected {expected} "
-          f"({ex['sync_rounds']} rounds + {ex['checks']} checks + 1 snapshot)")
-    expected = ITERATIONS + ex["checks_with_tip"]
-    check(launches.get("fedavg_gather", 0) == expected,
-          f"fedavg_gather launched {launches.get('fedavg_gather', 0)} times, expected {expected}")
+    check(all(bool(torch.isfinite(p).all()) for p in params.values()), f"{label}: non-finite params")
+    check_round_launches(label, ex, launches, iterations)
     return {
-        "iterations": ITERATIONS, "nodes": dcfg.num_nodes, "capacity": dcfg.capacity,
-        "params": MAIN_P, "run_s": wall_s, "stage_ms": ex["stage_ms"], "checks": ex["checks"],
-        "checks_with_tip": ex["checks_with_tip"], "sync_rounds": ex["sync_rounds"],
+        "iterations": iterations, "nodes": dcfg.num_nodes, "capacity": dcfg.capacity,
+        "params": MAIN_P, "engine": options.get("engine", "ticks"), "run_s": wall_s,
+        "ms_per_iteration": 1e3 * wall_s / iterations, "stage_ms": ex["stage_ms"],
+        "checks": ex["checks"], "checks_with_tip": ex["checks_with_tip"],
+        "sync_rounds": ex["sync_rounds"], "events_processed": ex["events_processed"],
+        "events_capped": ex["events_capped"], "edge_draws": ex["edge_draws"],
         "dispatch_counts": ex["dispatch_counts"], "launches": launches,
         "missing_rows_final_max": int(ex["missing_rows_final"].max()),
         "approvals_issued": ex["approvals_issued"], "approvals_in_union": ex["approvals_in_union"],
@@ -455,14 +469,12 @@ def bank_runs():
 def phase_bank_main_path(cuda_build, bankless):
     """The bank's path: ``run_dagfl_gossip(bank_gossip=...)`` at full width
     on each wire of ``bank_runs``; the unlimited one must be the bankless run
-    of phase 2 bitwise. Returns the summaries and the Table-I run's result."""
-    out, table1 = {}, None
+    of phase 2 bitwise. Returns the summaries and the runs' results."""
+    out, results = {}, {}
     for name, options in bank_runs().items():
-        out[name], res = bank_run(cuda_build, name, options,
-                                  bankless=bankless if name == "unlimited" else None)
-        if name == "table1":
-            table1 = res
-    return out, table1
+        out[name], results[name] = bank_run(cuda_build, name, options,
+                                            bankless=bankless if name == "unlimited" else None)
+    return out, results
 
 
 def codec_kernel_name(codec):
@@ -472,7 +484,29 @@ def codec_kernel_name(codec):
     return "topk_blocks" if codec.kind == "topk" else "quant_blocks"
 
 
-def bank_run(cuda_build, name, options, bankless=None, same_as=None):
+def check_round_launches(what, ex, launches, iterations=ITERATIONS):
+    """The launches every gossip run makes: one winner per round that drew
+    (a drain-only batch of the events engine draws and merges nothing) and
+    per union fold (each check, and the mid-run snapshot); Eq. (1) per
+    prepare and per check with a tip; on the events engine one queue-head
+    pop per batch and one more per advance that ended at its horizon."""
+    expected = ex["edge_draws"] + ex["checks"] + 1
+    check(launches.get("gossip_winner", 0) == expected,
+          f"{what}: gossip_winner launched {launches.get('gossip_winner', 0)} times, expected "
+          f"{expected} ({ex['edge_draws']} rounds + {ex['checks']} checks + 1 snapshot)")
+    expected = iterations + ex["checks_with_tip"]
+    check(launches.get("fedavg_gather", 0) == expected,
+          f"{what}: fedavg_gather launched {launches.get('fedavg_gather', 0)} times, "
+          f"expected {expected}")
+    advances = sum(v for k, v in ex["dispatch_counts"].items() if k.startswith("advance_events"))
+    expected = ex["events_processed"] + advances - ex["events_capped"]
+    check(launches.get("event_pop", 0) == expected,
+          f"{what}: event_pop launched {launches.get('event_pop', 0)} times, expected {expected} "
+          f"({ex['events_processed']} batches + {advances} advances - {ex['events_capped']} "
+          "capped)")
+
+
+def bank_run(cuda_build, name, options, bankless=None, same_as=None, iterations=ITERATIONS):
     """One full-width bank run, checked; returns its summary and its result
     without the bank. Nothing else of the run outlives the call, so the next
     run's peak memory is its own. ``bankless``: the run must equal this
@@ -484,7 +518,7 @@ def bank_run(cuda_build, name, options, bankless=None, same_as=None):
 
     dcfg = CNN_TASK.dagfl
     nodes, gval = paper_setup(dcfg.num_nodes, 28)
-    sim = SimConfig(iterations=ITERATIONS, eval_every=EVAL_EVERY, minibatch=dcfg.minibatch)
+    sim = SimConfig(iterations=iterations, eval_every=EVAL_EVERY, minibatch=dcfg.minibatch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_build.LAUNCHES.clear()
@@ -499,7 +533,7 @@ def bank_run(cuda_build, name, options, bankless=None, same_as=None):
     bstate = ex["replicas"].bank_state
     check(bstate.have.is_cuda and bstate.have.shape == (MAIN_NODES, MAIN_SLOTS, MAIN_CHUNKS),
           f"bank {name}: presence {tuple(bstate.have.shape)} on {bstate.have.device}")
-    check(int(ex["dag"].count) == ITERATIONS + 1, f"bank {name}: union count")
+    check(int(ex["dag"].count) == iterations + 1, f"bank {name}: union count")
     check(len(res.accs) > 0 and bool(np.isfinite(res.accs).all()),
           f"bank {name}: accuracies {res.accs}")
     params = res.final_params
@@ -510,26 +544,19 @@ def bank_run(cuda_build, name, options, bankless=None, same_as=None):
     check(lag.shape == (ex["checks"], 3) and bool(np.isfinite(lag).all()),
           f"bank {name}: lag curve {lag.shape}")
     check(ex["bank_bytes_sent"] > 0, f"bank {name}: no payload byte was sent")
-    # one dedup per executed round, per prepare (the gated view), per
-    # controller check (the lag sample), and two in extras (the final
-    # missing count and the bank-aware synced)
-    expected = ex["sync_rounds"] + ITERATIONS + ex["checks"] + 2
+    # one dedup per executed round or event batch, per prepare (the gated
+    # view), per controller check (the lag sample), and two in extras (the
+    # final missing count and the bank-aware synced)
+    expected = ex["sync_rounds"] + iterations + ex["checks"] + 2
     check(launches.get("chunk_dedup", 0) == expected,
           f"bank {name}: chunk_dedup launched {launches.get('chunk_dedup', 0)} times, "
-          f"expected {expected} ({ex['sync_rounds']} rounds + {ITERATIONS} prepares + "
+          f"expected {expected} ({ex['sync_rounds']} rounds + {iterations} prepares + "
           f"{ex['checks']} checks + 2)")
-    expected = ex["sync_rounds"] + ex["checks"] + 1
-    check(launches.get("gossip_winner", 0) == expected,
-          f"bank {name}: gossip_winner launched {launches.get('gossip_winner', 0)} times, "
-          f"expected {expected}")
-    expected = ITERATIONS + ex["checks_with_tip"]
-    check(launches.get("fedavg_gather", 0) == expected,
-          f"bank {name}: fedavg_gather launched {launches.get('fedavg_gather', 0)} times, "
-          f"expected {expected}")
+    check_round_launches(f"bank {name}", ex, launches)
     # one codec launch per commit, of the codec's own kernel only
     codec = options["bank_gossip"].codec
     for kernel in ("quant_blocks", "topk_blocks"):
-        expected = ITERATIONS if kernel == codec_kernel_name(codec) else 0
+        expected = iterations if kernel == codec_kernel_name(codec) else 0
         check(launches.get(kernel, 0) == expected,
               f"bank {name}: {kernel} launched {launches.get(kernel, 0)} times, expected "
               f"{expected} (one per commit of a lossy codec)")
@@ -541,14 +568,19 @@ def bank_run(cuda_build, name, options, bankless=None, same_as=None):
         check_same_bank_run(f"bank {name}", res, same_as, CALL_NOISE_TOL)
     reference = bankless if bankless is not None else same_as
     return {
-        "iterations": ITERATIONS, "nodes": dcfg.num_nodes, "capacity": dcfg.capacity,
+        "iterations": iterations, "nodes": dcfg.num_nodes, "capacity": dcfg.capacity,
         "params": MAIN_P, "chunks_per_slot": MAIN_CHUNKS,
         "slot_bytes": options["bank_gossip"].slot_bytes,
         "link_bytes_per_tick": float(options["topology"].bandwidth[0, 1]) / 8.0,
         "codec": None if codec is None else codec.kind,
-        "run_s": wall_s, "ms_per_iteration": 1e3 * wall_s / ITERATIONS,
+        "engine": options.get("engine", "ticks"),
+        "run_s": wall_s, "ms_per_iteration": 1e3 * wall_s / iterations,
         "stage_ms": ex["stage_ms"], "checks": ex["checks"],
-        "sync_rounds": ex["sync_rounds"], "dispatch_counts": ex["dispatch_counts"],
+        "sync_rounds": ex["sync_rounds"], "events_processed": ex["events_processed"],
+        "delivery_batches": ex["edge_draws"],
+        "drain_batches": ex["events_processed"] - ex["edge_draws"]
+        if ex["events_processed"] else 0,
+        "events_capped": ex["events_capped"], "dispatch_counts": ex["dispatch_counts"],
         "launches": launches, "bank_bytes_sent": ex["bank_bytes_sent"],
         "bank_lag_max": float(lag[:, 2].max()), "bank_lag_final": float(lag[-1, 2]),
         "bank_lag_curve": lag.tolist(),
@@ -632,7 +664,8 @@ def phase_profile(system="run_dagfl", label=None, **options):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        getattr(systems, system)(CNNTask(), nodes, dcfg, sim, gval, device="cuda", **options)
+        res = getattr(systems, system)(CNNTask(), nodes, dcfg, sim, gval, device="cuda",
+                                       **options)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t)
     spans = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
@@ -654,11 +687,19 @@ def phase_profile(system="run_dagfl", label=None, **options):
         "device_ops": len(spans),
     }
     for kernel in ("fedavg_gather", "gossip_winner", "chunk_dedup", "quant_blocks",
-                   "topk_blocks"):
+                   "topk_blocks", "event_pop"):
         us = [end - start for start, end, name in spans if f"{kernel}_kernel" in name]
         out[f"{kernel}_in_loop"] = {"launches": len(us), "ms_total": sum(us) / 1e3,
                                     "ms_mean": sum(us) / 1e3 / max(len(us), 1)}
     out["top_device_ms"] = {name[:80]: us / 1e3 for name, us in top}
+    # host syncs: stream synchronisations the runtime made (each read back of
+    # a device value is one), over the window and per event batch
+    syncs = sum(1 for e in prof.events() if e.name == "cudaStreamSynchronize")
+    out["host_syncs"] = syncs
+    batches = res.extras.get("events_processed", 0)
+    if batches:
+        out["event_batches"] = batches
+        out["host_syncs_per_batch"] = syncs / batches
     return out
 
 
@@ -706,10 +747,11 @@ def small_draws(device, n, cap):
     return draw, edge_draw
 
 
-def phase_small_gossip_agreement():
+def phase_small_gossip_agreement(engine="ticks"):
     """A small ``run_dagfl_gossip`` on the card and on the CPU, with the same
     tip-selection and edge draws: a lossy ring with strided links and a
-    partition that heals."""
+    partition that heals; on the events engine with jittered latencies
+    (0.5-1.5 s), each link at its own cadence."""
     from repro_torch.fl.experiments import default_dagfl_config, make_cnn_setup
     from repro_torch.fl.systems import SimConfig, run_dagfl_gossip
     from repro_torch.net.gossip import PartitionSchedule
@@ -718,30 +760,38 @@ def phase_small_gossip_agreement():
     n = 8
     dcfg = default_dagfl_config(num_nodes=n)
     sim = SimConfig(iterations=20, eval_every=5, seed=0)
+    latency = dict(link_latency=1.5)
+    what = "gossip"
+    if engine == "events":
+        latency = dict(link_latency=0.5, latency_jitter=1.0)
+        what = "gossip events"
 
     out = {}
     for device in ("cuda", "cpu"):
         task, nodes, gval, _ = make_cnn_setup(num_nodes=n, seed=0)
         draw, edge_draw = small_draws(device, n, dcfg.capacity)
         out[device] = run_dagfl_gossip(
-            task, nodes, dcfg, sim, gval, topology=ring(n, link_latency=1.5, drop=0.3),
-            partition=PartitionSchedule(split_halves(n), 5.0, 12.0), device=device, draw=draw,
-            edge_draw=edge_draw)
+            task, nodes, dcfg, sim, gval, topology=ring(n, drop=0.3, **latency),
+            partition=PartitionSchedule(split_halves(n), 5.0, 12.0), engine=engine,
+            device=device, draw=draw, edge_draw=edge_draw)
     g, c = out["cuda"], out["cpu"]
-    check_same_run("gossip", g, c)
+    check_same_run(what, g, c)
+    check(g.extras["events_processed"] == c.extras["events_processed"],
+          f"{what}: events_processed differs")
     check(g.extras["dispatch_counts"] == c.extras["dispatch_counts"],
-          f"gossip: dispatch_counts differ: {g.extras['dispatch_counts']} vs "
+          f"{what}: dispatch_counts differ: {g.extras['dispatch_counts']} vs "
           f"{c.extras['dispatch_counts']}")
     check(np.array_equal(g.extras["divergence_curve"], c.extras["divergence_curve"]),
-          "gossip: divergence curve differs")
-    check(g.extras["sync_rounds"] > 0, "gossip: no sync round ran")
+          f"{what}: divergence curve differs")
+    check(g.extras["sync_rounds"] > 0, f"{what}: no sync round ran")
     diff = max(float((g.final_params[k].cpu() - c.final_params[k]).abs().max()) for k in c.final_params)
-    check(diff <= 1e-4, f"gossip: final params differ by {diff}")
+    check(diff <= 1e-4, f"{what}: final params differ by {diff}")
     return {"final_params_max_abs_diff": diff, "accs": [float(a) for a in g.accs],
-            "sync_rounds": g.extras["sync_rounds"], "dispatch_counts": g.extras["dispatch_counts"]}
+            "sync_rounds": g.extras["sync_rounds"], "events_processed": g.extras["events_processed"],
+            "dispatch_counts": g.extras["dispatch_counts"]}
 
 
-def phase_small_bank_agreement(codec=None):
+def phase_small_bank_agreement(codec=None, engine="ticks"):
     """A small banked ``run_dagfl_gossip`` on the card and on the CPU with
     the same draws: a lossy ring with strided, starved links (10 Mbit/s, 7
     MB models, so credit rolls over and gating holds rows back) and a
@@ -751,7 +801,10 @@ def phase_small_bank_agreement(codec=None):
     agree bitwise. Parameters within 1e-4, and with a quantising codec one
     quantisation step more (the largest block's scale): the two devices'
     training differs by about 1e-7, and a value that close to a rounding
-    boundary moves its code by one."""
+    boundary moves its code by one.
+
+    ``engine="events"``: the same on the continuous-time engine, with
+    jittered latencies (0.5-1.5 s), so chunk drains arm between deliveries."""
     from repro_torch.fl.experiments import default_dagfl_config, make_cnn_setup
     from repro_torch.fl.systems import SimConfig, run_dagfl_gossip
     from repro_torch.net.bank import BankGossipConfig
@@ -762,6 +815,10 @@ def phase_small_bank_agreement(codec=None):
     dcfg = default_dagfl_config(num_nodes=n)
     sim = SimConfig(iterations=20, eval_every=5, seed=0)
     what = "bank small" if codec is None else f"bank small {codec.kind}"
+    latency = dict(link_latency=1.5)
+    if engine == "events":
+        what += " events"
+        latency = dict(link_latency=0.5, latency_jitter=1.0)
 
     out = {}
     for device in ("cuda", "cpu"):
@@ -769,12 +826,18 @@ def phase_small_bank_agreement(codec=None):
         draw, edge_draw = small_draws(device, n, dcfg.capacity)
         out[device] = run_dagfl_gossip(
             task, nodes, dcfg, sim, gval,
-            topology=ring(n, link_latency=1.5, drop=0.3, bandwidth=1e7),
+            topology=ring(n, drop=0.3, bandwidth=1e7, **latency),
             partition=PartitionSchedule(split_halves(n), 5.0, 12.0),
             bank_gossip=BankGossipConfig(chunks_per_slot=MAIN_CHUNKS,
                                          slot_bytes=TABLE1_SLOT_BYTES, codec=codec),
-            device=device, draw=draw, edge_draw=edge_draw)
+            engine=engine, device=device, draw=draw, edge_draw=edge_draw)
     g, c = out["cuda"], out["cpu"]
+    for key in ("events_processed", "edge_draws"):
+        check(g.extras[key] == c.extras[key],
+              f"{what}: {key} differs: {g.extras[key]} vs {c.extras[key]}")
+    if engine == "events":
+        check(g.extras["events_processed"] > g.extras["edge_draws"],
+              f"{what}: no drain-only batch ran")
     tol = 1e-4
     if codec is not None and codec.kind in ("int8", "int4"):
         qmax = 127 if codec.kind == "int8" else 7
@@ -784,6 +847,8 @@ def phase_small_bank_agreement(codec=None):
     check(lag[:, 2].max() > 0, f"{what}: no payload lagged its row (gating never bit)")
     return {"final_params_max_abs_diff": diff, "param_tolerance": tol,
             "accs": [float(a) for a in g.accs], "sync_rounds": g.extras["sync_rounds"],
+            "events_processed": g.extras["events_processed"],
+            "delivery_batches": g.extras["edge_draws"],
             "bank_bytes_sent": g.extras["bank_bytes_sent"], "bank_lag_curve": lag.tolist()}
 
 
@@ -1043,6 +1108,271 @@ def phase_dedup_kernel(ck):
     ]
 
 
+def pop_queue(gen, q, case):
+    """(time, kind, seq, valid) on the card for one event_pop case.
+
+    "deliver": the full overlay's delivery slots, every slot valid, times on
+    a 0.5 s grid (many exact ties: seq decides). "bank": delivery slots, then
+    as many drain slots, 30 % armed at times off the grid (and some on it).
+    "tipsim": delivery slots, 64 publish slots (some armed) and the start
+    slot. "ties": times, kinds and seqs from small sets, duplicates included
+    (a full tie goes to the lowest index). "signed_zeros": -0.0 beside +0.0.
+    "inf_nan": +inf and NaN on valid slots. "invalid": nothing valid."""
+    dev = torch.device("cuda")
+    kw = dict(generator=gen, device=dev)
+    seq = torch.arange(q, dtype=torch.int32, device=dev)
+    kind = torch.zeros(q, dtype=torch.int32, device=dev)
+    valid = torch.ones(q, dtype=torch.bool, device=dev)
+    time_ = torch.randint(1, 7, (q,), **kw).float() * 0.5
+    if case == "bank":
+        e = q // 2
+        kind[e:] = 1
+        valid[e:] = torch.rand((q - e,), **kw) < 0.3
+        time_[e:] = torch.where(torch.rand((q - e,), **kw) < 0.9,
+                                torch.rand((q - e,), **kw) * 3.0, time_[e:])
+    elif case == "tipsim":
+        e = q - 65
+        kind[e:e + 64] = 2
+        kind[q - 1] = 3
+        valid[e:e + 64] = torch.rand((64,), **kw) < 0.2
+        time_[e:] = torch.rand((65,), **kw) * 3.0
+    elif case in ("ties", "signed_zeros", "inf_nan", "invalid"):
+        choices = {"ties": [0.25, 1.0, 1.5], "signed_zeros": [-0.0, 0.0, 0.5],
+                   "inf_nan": [float("inf"), 1.0, float("nan"), 1.0],
+                   "invalid": [1.0]}[case]
+        pick = torch.randint(0, len(choices), (q,), **kw)
+        time_ = torch.tensor(choices, device=dev)[pick]
+        kind = torch.randint(0, 4, (q,), dtype=torch.int32, **kw)
+        seq = torch.randint(0, 6, (q,), dtype=torch.int32, **kw)
+        valid = torch.rand((q,), **kw) < (0.0 if case == "invalid" else 0.7)
+    return time_, kind, seq, valid
+
+
+def pop_case(ep, name, q, case, gen, draws=5, reps=200, cold=False):
+    """One shape of the event-queue head: the kernel's four words bitwise
+    against the plain version on ``draws`` queues, then times: ``ms_hot``
+    pops one queue again and again (it stays in L2); with ``cold`` the
+    calls cycle through distinct queues of 64 MB in all, more than the 50
+    MB L2, as in the event loop, where the round between two pops moves
+    megabytes and the static kind and seq columns go cold. ``ms`` is the
+    cold time where there is one."""
+    for _ in range(draws):
+        args = pop_queue(gen, q, case)
+        got = ep.event_head(*args)
+        want = ep.event_head_plain(*args)
+        torch.cuda.synchronize()
+        max_abs_err = int((got.long() - want.long()).abs().max())
+        check(torch.equal(got, want), f"event_pop {name}: kernel {got.tolist()} != plain "
+                                      f"{want.tolist()}")
+    ms_hot = device_ms(ep.event_head, [args] * reps)
+    ms_cold = None
+    if cold:
+        copies = -(-POP_COLD_BYTES // (EVENT_POP_BYTES_PER_SLOT * q))
+        ms_cold = device_ms(ep.event_head, [pop_queue(gen, q, case) for _ in range(copies)])
+    # the plain version launches about 15 kernels a call: 8 calls behind the spin
+    plain_ms = device_ms(ep.event_head_plain, [args] * 8)
+    # what the event loop pays per batch for its head: the launch, the
+    # read back and the host's own work
+    head_ms = call_ms(lambda *a: ep.read_head(ep.event_head(*a)), [args] * reps)
+    # least bytes: each slot's time, kind, seq (4 B each) and valid (1 B)
+    # read once, the four output words written once; its compares are far less
+    nbytes = EVENT_POP_BYTES_PER_SLOT * q + 16
+    return {"case": name, "Q": q, "queue": case, "max_abs_err": max_abs_err,
+            "ms": ms_hot if ms_cold is None else ms_cold, "ms_hot": ms_hot, "ms_cold": ms_cold,
+            "plain_ms": plain_ms, "pop_and_read_back_ms": head_ms, "library_ms": None,
+            "bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S, "bound_by": "bytes",
+            "bound_bytes": nbytes}
+
+
+def phase_event_pop_kernel(ep):
+    """Phase 1e: the queue head at the engine's three queue sizes (the full
+    overlay's 9,900 delivery slots; 19,800 with the bank's drain slots;
+    9,965 in the tip simulation) and the edge cases."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    q_tip = MAIN_NODES * (MAIN_NODES - 1) + TIP_SIM_PENDING + 1
+    return [
+        pop_case(ep, "deliver", MAIN_EDGES, "deliver", gen, cold=True),
+        pop_case(ep, "bank", 2 * MAIN_EDGES, "bank", gen, cold=True),
+        pop_case(ep, "tipsim", q_tip, "tipsim", gen, cold=True),
+        pop_case(ep, "ties", MAIN_EDGES, "ties", gen),
+        pop_case(ep, "signed_zeros", MAIN_EDGES, "signed_zeros", gen),
+        pop_case(ep, "inf_nan", q_tip, "inf_nan", gen),
+        pop_case(ep, "invalid", MAIN_EDGES, "invalid", gen),
+        pop_case(ep, "q1", 1, "ties", gen, draws=20),
+        pop_case(ep, "q70", 70, "ties", gen, draws=20),
+        pop_case(ep, "q1025", 1025, "signed_zeros", gen, draws=20),
+    ]
+
+
+def check_same_floats(what, a, b):
+    """Two runs agree in their floats too: the union's and every replica's
+    accuracy and tag columns, the divergence curve, the final parameters."""
+    for part, da, db in (("union", a.extras["dag"], b.extras["dag"]),
+                         ("replicas", a.extras["replicas"].dags, b.extras["replicas"].dags)):
+        for name in ("accuracy", "auth_tag"):
+            check(same_bits(getattr(da, name).cpu(), getattr(db, name).cpu()),
+                  f"{what}: {part} {name} differs")
+    check(np.array_equal(a.extras["divergence_curve"], b.extras["divergence_curve"]),
+          f"{what}: divergence curve differs")
+    for k in a.final_params:
+        check(same_bits(a.final_params[k].cpu(), b.final_params[k].cpu()),
+              f"{what}: final params {k} differ")
+
+
+def events_constrained_runs():
+    """Path (c): the constrained link class with honest latency,
+    full(100, link_latency=0.5, bandwidth=1e6), phi = 7 MB, raw and int4."""
+    from repro_torch.configs.dagfl_paper_tasks import CNN_TASK
+    from repro_torch.kernels.delta_codec import DeltaCodec
+    from repro_torch.net.bank import BankGossipConfig
+    from repro_torch.net.topology import full
+
+    top = full(CNN_TASK.dagfl.num_nodes, link_latency=0.5, bandwidth=CONSTRAINED_BPS)
+    return {kind or "raw": dict(topology=top, bank_gossip=BankGossipConfig(
+        chunks_per_slot=MAIN_CHUNKS, slot_bytes=TABLE1_SLOT_BYTES,
+        codec=None if kind is None else DeltaCodec(kind))) for kind in (None, "int4")}
+
+
+def phase_events_main_path(cuda_build, bankless, unlimited):
+    """Phase 2e, the events engine at full width.
+
+    (a) ``run_dagfl_gossip(engine="events")`` with the defaults: every edge
+        delivers every 1.0 s, so it must equal phase 2's ticks run bitwise,
+        floats included; (b) the unlimited bank on the events engine must
+        equal (a), and its transport state phase 2c's unlimited ticks run;
+    (c) the 1 Mbit/s class with 0.5 s links, raw and int4, each beside the
+        ticks run of the same config; (d) a jittered 8-regular overlay, many
+        distinct delivery instants, cut in depth. Returns the summaries and
+        (a)'s kernel launches."""
+    from repro_torch.net.topology import k_regular
+
+    out = {}
+    out["a_degenerate"], events_a = phase_gossip_main_path(cuda_build, "events (a)",
+                                                           engine="events")
+    check_same_run("events (a) vs ticks", events_a, bankless)
+    check_same_floats("events (a) vs ticks", events_a, bankless)
+    check(events_a.extras["events_processed"] == bankless.extras["sync_rounds"],
+          "events (a): a batch per tick expected")
+    options = dict(bank_runs()["unlimited"], engine="events")
+    out["b_unlimited_bank"], events_b = bank_run(cuda_build, "unlimited events", options,
+                                                 bankless=events_a)
+    check_same_floats("events (b) vs (a)", events_b, events_a)
+    for name in ("have", "credit", "sent"):
+        check(torch.equal(getattr(events_b.extras["replicas"].bank_state, name).cpu(),
+                          getattr(unlimited.extras["replicas"].bank_state, name).cpu()),
+              f"events (b): transport {name} differs from the ticks unlimited run")
+    del events_b
+    drains = 0
+    for name, options in events_constrained_runs().items():
+        for engine in ("events", "ticks"):
+            key = f"c_1mbps_lat0.5_{name}_{engine}"
+            out[key] = bank_run(cuda_build, f"1 Mbit/s 0.5 s {name} {engine}",
+                                dict(options, engine=engine))[0]
+            drains += out[key]["drain_batches"]
+    check(drains > 0, "events (c): no drain-only batch ran")
+    out["d_k_regular_jitter"] = phase_gossip_main_path(
+        cuda_build, "events (d)", iterations=JITTER_ITERATIONS, engine="events",
+        topology=k_regular(MAIN_NODES, 8, link_latency=0.5, latency_jitter=1.0, seed=0))[0]
+    return out, out["a_degenerate"]["launches"]
+
+
+def phase_tip_sims(cuda_build):
+    """Phase 2f, the §IV in-system tip simulation on the card. (e) Table-I
+    size: full(100), capacity 512, k = 2, h = Eq. (7) at f = 1.5 GHz, lambda
+    = 1, 600 s, sync 0.25 s; nothing may overflow. Then the reference's
+    bench point (full(16), capacity 256) for several seeds: one seed's tail
+    mean spreads by about 10 %, so their mean must land within 15 % of
+    Eq. (4)."""
+    from repro_torch.configs.dagfl_paper_tasks import CNN_TASK
+    from repro_torch.core import stability
+    from repro_torch.net.events import simulate_insystem_tips
+    from repro_torch.net.topology import full
+
+    dcfg = CNN_TASK.dagfl
+    h = stability.iteration_delay(dcfg, TIP_SIM_F)
+    eq4 = stability.equilibrium_tips(dcfg, TIP_SIM_F)
+    out = {}
+    for name, n, capacity, seeds in (("e_table1", MAIN_NODES, MAIN_SLOTS, (0,)),
+                                     ("bench_point", 16, 256, TIP_SIM_SEEDS)):
+        runs = []
+        for seed in seeds:
+            torch.cuda.synchronize()
+            cuda_build.LAUNCHES.clear()
+            t = time.perf_counter()
+            trace = simulate_insystem_tips(
+                full(n), h=h, arrival_rate=dcfg.arrival_rate, k=dcfg.k, tau_max=dcfg.tau_max,
+                horizon=TIP_SIM_HORIZON, capacity=capacity, seed=seed, sync_period=0.25,
+                max_pending=TIP_SIM_PENDING)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t
+            launches = dict(cuda_build.LAUNCHES)
+            check(trace.overflow == 0, f"tip sim {name} seed {seed}: overflow {trace.overflow}")
+            check(trace.published > 0.6 * TIP_SIM_HORIZON * dcfg.arrival_rate,
+                  f"tip sim {name} seed {seed}: only {trace.published} published")
+            check(trace.union.publisher.is_cuda, f"tip sim {name}: union is not on the card")
+            pub = trace.union.published_per_node[:n].sum()
+            check(int(pub) == trace.published, f"tip sim {name}: per-node counters {int(pub)}")
+            # one pop per batch: every publish is a batch, and so is its start
+            check(launches.get("event_pop", 0) > 2 * trace.published,
+                  f"tip sim {name}: event_pop launched {launches.get('event_pop', 0)} times")
+            runs.append({"seed": seed, "published": trace.published, "overflow": trace.overflow,
+                         "tail_mean": trace.tail_mean(0.5),
+                         "staleness_max": float(trace.staleness.max()),
+                         "wall_s": wall_s, "launches": launches})
+        tail = float(np.mean([r["tail_mean"] for r in runs]))
+        out[name] = {"nodes": n, "capacity": capacity, "h_s": h, "horizon_s": TIP_SIM_HORIZON,
+                     "eq4_tips": eq4, "tail_mean": tail, "rel_to_eq4": tail / eq4 - 1.0,
+                     "runs": runs}
+    rel = out["bench_point"]["rel_to_eq4"]
+    check(abs(rel) <= 0.15, f"tip sim bench point: mean tail {out['bench_point']['tail_mean']} "
+                            f"is {rel:+.1%} off Eq. (4) = {eq4}")
+    return out
+
+
+def tip_draws(device, n, cap):
+    """The tip simulation's draws made with numpy, the same on every device."""
+    def draw(what, index):
+        rng = np.random.default_rng([3, index])
+        f32 = lambda x: torch.tensor(np.float32(x), device=device)
+        if what == "edges":
+            return torch.from_numpy(rng.random((n, n), dtype=np.float32)).to(device)
+        if what == "first":
+            return f32(rng.exponential())
+        u = torch.from_numpy(rng.uniform(1e-9, 1.0, cap).astype(np.float32)).to(device)
+        return (torch.tensor(int(rng.integers(n)), device=device), u,
+                f32(rng.exponential()))
+    return draw
+
+
+def phase_small_tip_agreement():
+    """A small tip simulation on the card and on the CPU with the same draws:
+    a lossy jittered ring, per-node h, a partition, few pending slots (some
+    starts find none). Trace, counts and union bitwise."""
+    from repro_torch.net.events import simulate_insystem_tips
+    from repro_torch.net.gossip import PartitionSchedule
+    from repro_torch.net.topology import ring, split_halves
+
+    n, cap = 8, 64
+    out = {}
+    for device in ("cuda", "cpu"):
+        out[device] = simulate_insystem_tips(
+            ring(n, link_latency=0.5, latency_jitter=1.0, drop=0.3),
+            h=np.linspace(0.5, 6.0, n), arrival_rate=2.0, k=2, tau_max=20.0, horizon=60.0,
+            capacity=cap, sync_period=0.5, partition=PartitionSchedule(split_halves(n), 10.0, 25.0),
+            max_pending=4, device=device, draw=tip_draws(device, n, cap))
+    g, c = out["cuda"], out["cpu"]
+    for name in ("times", "tips", "staleness"):
+        check(np.array_equal(getattr(g, name), getattr(c, name)), f"tip sim small: {name} differ")
+    check((g.published, g.overflow) == (c.published, c.overflow),
+          f"tip sim small: counts {(g.published, g.overflow)} vs {(c.published, c.overflow)}")
+    for name in LEDGER_COLUMNS:
+        check(torch.equal(getattr(g.union, name).cpu(), getattr(c.union, name)),
+              f"tip sim small: union {name} differs")
+    check(g.overflow > 0, "tip sim small: no start found every pending slot taken")
+    return {"published": g.published, "overflow": g.overflow, "tail_mean": g.tail_mean(0.5)}
+
+
 def nvidia_smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1062,7 +1392,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     from repro_torch.device import resolve_device
-    from repro_torch.kernels import chunk_transfer, cuda_build, delta_codec, fedavg
+    from repro_torch.kernels import chunk_transfer, cuda_build, delta_codec, event_pop, fedavg
     from repro_torch.kernels import gossip_merge
 
     resolve_device("cuda")
@@ -1090,8 +1420,8 @@ def main() -> int:
         print(json.dumps({"profile_gossip": phase_profile("run_dagfl_gossip")}))
 
         print(json.dumps({"digests": phase_digests()}))
-        bank_paths, table1 = phase_bank_main_path(cuda_build, bankless)
-        del bankless
+        bank_paths, bank_results = phase_bank_main_path(cuda_build, bankless)
+        table1 = bank_results.pop("table1")
         print(json.dumps({"bank_main_path": bank_paths}))
         print(json.dumps({"profile_bank": phase_profile(
             "run_dagfl_gossip", label="run_dagfl_gossip(bank_gossip, Table I)",
@@ -1104,6 +1434,20 @@ def main() -> int:
             "run_dagfl_gossip", label="run_dagfl_gossip(bank_gossip, 1 Mbit/s, int4)",
             **constrained_runs()["int4"])}))
 
+        t = time.perf_counter()
+        events_paths, events_launches = phase_events_main_path(cuda_build, bankless,
+                                                               bank_results["unlimited"])
+        del bankless, bank_results
+        print(json.dumps({"events_main_path": events_paths}))
+        print(f"[phase 2e] events engine paths: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        print(json.dumps({"tip_sims": phase_tip_sims(cuda_build)}))
+        print(f"[phase 2f] tip simulations: {time.perf_counter() - t:.1f} s")
+        print(json.dumps({"profile_events": phase_profile(
+            "run_dagfl_gossip",
+            label="run_dagfl_gossip(engine=events, 1 Mbit/s, 0.5 s links, int4)",
+            engine="events", **events_constrained_runs()["int4"])}))
+
         small = phase_small_agreement()
         print(json.dumps({"small_agreement": small}))
         small_gossip = phase_small_gossip_agreement()
@@ -1113,6 +1457,14 @@ def main() -> int:
         small_codec = phase_small_bank_agreement(delta_codec.DeltaCodec("int8"))
         print(json.dumps({"small_codec_agreement": small_codec}))
         print(json.dumps({"codec_encode_agreement": phase_codec_encode_agreement()}))
+        t = time.perf_counter()
+        print(json.dumps({"small_events_agreement": phase_small_gossip_agreement("events")}))
+        print(json.dumps({"small_events_bank_agreement": phase_small_bank_agreement(
+            engine="events")}))
+        print(json.dumps({"small_events_codec_agreement": phase_small_bank_agreement(
+            delta_codec.DeltaCodec("int8"), engine="events")}))
+        print(json.dumps({"small_tip_agreement": phase_small_tip_agreement()}))
+        print(f"[phase 3e] events engine, card against CPU: {time.perf_counter() - t:.1f} s")
         gossip_cases = phase_gossip_kernel(gossip_merge)
         print(json.dumps({"gossip_cases": gossip_cases}))
         dedup_cases = phase_dedup_kernel(chunk_transfer)
@@ -1122,6 +1474,10 @@ def main() -> int:
         print(json.dumps({"quant_cases": quant_cases}))
         print(json.dumps({"topk_cases": topk_cases}))
         print(f"[phase 1d] codec kernels vs plain: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        pop_cases = phase_event_pop_kernel(event_pop)
+        print(json.dumps({"event_pop_cases": pop_cases}))
+        print(f"[phase 1e] event_pop vs plain: {time.perf_counter() - t:.1f} s")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1193,6 +1549,22 @@ def main() -> int:
             "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"],   # quant: none; topk: torch.topk + scatter
         })
+    pop_main = next(c for c in pop_cases if c["case"] == "deliver")
+    kernels.append({
+        "name": "event_pop",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/event_pop.cu",
+        "replaces": "src/repro/kernels/event_pop.py:73",
+        "launches": events_launches.get("event_pop", 0),
+        "max_abs_err": max(c["max_abs_err"] for c in pop_cases),
+        "ms": pop_main["ms"],
+        "kernel_ms": pop_main["ms"],
+        "call_ms": pop_main["pop_and_read_back_ms"],
+        "plain_ms": pop_main["plain_ms"],
+        "bound_ms": pop_main["bound_ms"],
+        "bound_by": pop_main["bound_by"],
+        "library_ms": None,          # no single PyTorch call takes a lexicographic argmin
+    })
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -458,6 +458,8 @@ class _GossipLedger:
             "device_calls": self.net.device_calls,
             "dispatch_counts": dict(self.net.dispatch_counts),
             "events_processed": self.net.events_processed,
+            "events_capped": self.net.events_capped,
+            "edge_draws": self.net.edge_draws,
             "synced_final": self.net.synced(),
             "missing_rows_final": self.net.missing_rows(union),
             "approvals_issued": int(self._issued),
@@ -507,11 +509,18 @@ def run_dagfl_gossip(
     (one codec kernel launch), the store keeps the decoded values and the
     chunks are priced at their encoded size.
 
+    ``engine`` overrides the transport clock (``GossipConfig.engine``):
+    "ticks" is the quantised stride model; "events" runs the continuous-time
+    engine (``repro_torch.net.events``): each link delivers at its own
+    latency, and with the bank, chunks drain at whole-chunk instants. With a
+    uniform delay equal to a dyadic sync period the two engines are bitwise
+    identical. ``extras["events_processed"]`` counts the event batches.
+
     ``draw`` and ``edge_draw`` replace the tip-selection and edge draws
-    (``run_dagfl``, ``repro_torch.net.gossip``). ``mesh``,
-    ``engine="events"``, ``obs``, ``faults`` and ``serve`` are not ported
-    yet and raise ``NotImplementedError``, alone or with ``bank_gossip`` and
-    its codec.
+    (``run_dagfl``, ``repro_torch.net.gossip``). ``mesh``, ``obs``,
+    ``faults`` and ``serve`` are not ported yet and raise
+    ``NotImplementedError``, alone or with ``bank_gossip``, its codec or
+    ``engine="events"``.
     """
     gossip_lib._unported(mesh=(mesh, "ROADMAP A.12"), obs=(obs, "ROADMAP A.9"),
                          faults=(faults, "ROADMAP A.10"), serve=(serve, "ROADMAP A.11"))
@@ -521,8 +530,6 @@ def run_dagfl_gossip(
         gossip = gossip_lib.GossipConfig(sync_period=1.0, seed=sim.seed)
     if engine is not None:
         gossip = dataclasses.replace(gossip, engine=engine)
-    if gossip.engine == "events":
-        raise NotImplementedError("engine='events' is not ported yet (ROADMAP A.8)")
     return _run_dagfl_events(
         task, nodes, dcfg, sim, global_val, weighted,
         lambda state, commit_fn: _GossipLedger(state, topology, gossip, partition,

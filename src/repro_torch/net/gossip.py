@@ -27,9 +27,18 @@ Edge draws. The reference's n-th executed round draws ``uniform(sub_n,
 (N, N))`` with ``key_{n+1}, sub_n = split(key_n)`` and ``key_0 =
 PRNGKey(cfg.seed)``; PyTorch cannot reproduce threefry, so every round's
 draw goes through one function, ``edge_draw(round_index) -> (N, N) f32`` in
-[0, 1), where ``round_index`` counts executed rounds (fast-forwarded ticks
-draw nothing). The default (``torch_edge_draw``) is a ``torch.Generator`` on
-the device seeded with ``cfg.seed``; the tests pass the reference's draws.
+[0, 1), where ``round_index`` counts the rounds that drew (``edge_draws``):
+fast-forwarded ticks and the events engine's drain-only batches draw
+nothing. The default (``torch_edge_draw``) is a ``torch.Generator`` on the
+device seeded with ``cfg.seed``; the tests pass the reference's draws.
+
+Continuous time: with ``GossipConfig(engine="events")`` ``advance`` runs
+the ``repro_torch.net.events`` engine instead of the tick loop: per-edge
+deliveries at each link's own latency, simultaneous deliveries merged as one
+round, and with the bank, chunk drains with continuously accrued budget.
+``converge`` is the engine-independent tick loop either way. In the
+degenerate limit (every delay equal to a dyadic sync period) the two engines
+are bitwise equal.
 
 Bank gossip (``bank_cfg=BankGossipConfig(...)``, ``repro_torch.net.bank``):
 every tick also moves model payload availability. Rows merge first, then
@@ -41,10 +50,9 @@ unlimited capacity the whole trajectory is bitwise the bankless one. With
 prices a chunk at its encoded size, ``chunk_bytes * wire_ratio()``; the
 identity codec keeps the raw granule.
 
-Only the ticks engine, with or without bank gossip and its codec, and
-without telemetry, faults, serving or a mesh is ported; ``GossipNetwork``
-raises ``NotImplementedError`` naming the ROADMAP item for each of those
-options.
+Both engines are ported, with or without bank gossip and its codec;
+telemetry, faults, serving and a mesh are not, and ``GossipNetwork`` raises
+``NotImplementedError`` naming the ROADMAP item for each of those options.
 """
 from __future__ import annotations
 
@@ -94,7 +102,12 @@ class GossipConfig:
     periods; the ticks past it are fast-forwarded: no round runs for them
     and no edge draw is made.
     ``impl``: "fused", "scan" or "lax" (see the module docstring).
-    ``engine``: only "ticks" is ported; "events" raises (ROADMAP A.8).
+    ``engine``: "ticks" (the quantised stride model) or "events" (the
+    continuous-time engine, ``repro_torch.net.events``). Under "events"
+    ``max_ticks_per_advance`` caps each delivery edge's fires per advance
+    window (a longer backlog is elided, as the tick engine fast-forwards),
+    and ``max_events_per_advance`` bounds one advance's event batches (what
+    is left runs in the next advance).
     """
 
     sync_period: float = 1.0
@@ -102,6 +115,7 @@ class GossipConfig:
     max_ticks_per_advance: int = 64
     impl: str = "fused"
     engine: str = "ticks"
+    max_events_per_advance: int = 8192
 
 
 def torch_edge_draw(seed: int, num_nodes: int, device) -> EdgeDraw:
@@ -268,9 +282,7 @@ class GossipNetwork:
     ):
         _unported(mesh=(mesh, "ROADMAP A.12"), obs_cfg=(obs_cfg, "ROADMAP A.9"),
                   faults_cfg=(faults_cfg, "ROADMAP A.10"), serve_cfg=(serve_cfg, "ROADMAP A.11"))
-        if cfg.engine == "events":
-            raise NotImplementedError("engine='events' is not ported yet (ROADMAP A.8)")
-        if cfg.engine != "ticks":
+        if cfg.engine not in ("ticks", "events"):
             raise ValueError(f"unknown gossip engine: {cfg.engine!r}")
         if cfg.impl not in ("fused", "scan", "lax"):
             raise ValueError(f"unknown gossip round impl: {cfg.impl!r}")
@@ -299,12 +311,16 @@ class GossipNetwork:
         )
         self._edge_draw = edge_draw if edge_draw is not None else torch_edge_draw(cfg.seed, n, dev)
         self.tick = 0                # global tick index (drives strides)
-        self.rounds_run = 0          # ticks actually executed (= edge draws made)
+        self.rounds_run = 0          # ticks / event batches actually executed
+        self.edge_draws = 0          # edge draws made: the next edge_draw's index
         self.device_calls = 0        # device entry points issued (_dispatch)
         self.dispatch_counts = {}    # per-entry-point breakdown
-        self.events_processed = 0    # event batches: always 0 on the ticks engine
+        self.events_processed = 0    # event batches fired (engine="events")
+        self.events_capped = 0       # advances that stopped at max_events_per_advance
         period = cfg.sync_period
         self._next_tick_t = period if period > 0 else 0.0
+        if cfg.engine == "events":
+            self._init_events(top, bank_cfg, partition)
 
     def _init_bank(self, bank, top: Topology, cfg: GossipConfig, bank_cfg: BankGossipConfig):
         c = bank_cfg.chunks_per_slot
@@ -336,6 +352,25 @@ class GossipNetwork:
         self._cap_bytes = torch.from_numpy(np.asarray(cap, np.float32)).to(self.device)
         self.replicas = self.replicas._replace(
             bank_state=bank_lib.init_bank_state(top.num_nodes, slots, c, self.device))
+
+    def _init_events(self, top: Topology, bank_cfg, partition) -> None:
+        from repro_torch.net import events as events_lib
+
+        period = self.cfg.sync_period
+        self._equeue, self._eislot = events_lib.make_edge_queue(
+            top, period if period > 0 else 1.0, drain_slots=bank_cfg is not None,
+            device=self.device)
+        # the partition window as f32 instants, compared with the f32 event clock
+        if partition is not None:
+            self._part_t0 = float(np.float32(partition.t_start))
+            self._part_t1 = float(np.float32(partition.t_end))
+        else:
+            self._part_t0, self._part_t1 = float("inf"), float("-inf")
+        if bank_cfg is not None:
+            n = top.num_nodes
+            self._last_srv = torch.zeros((n, n), dtype=torch.float32, device=self.device)
+            self._bw_bytes = torch.from_numpy(
+                np.asarray(top.bandwidth / 8.0, np.float32)).to(self.device)
 
     # --- replica access ----------------------------------------------------
 
@@ -430,11 +465,17 @@ class GossipNetwork:
         self.dispatch_counts[label] = self.dispatch_counts.get(label, 0) + 1
         return fn(*args)
 
+    def _next_uniform(self) -> torch.Tensor:
+        """The next round's (N, N) edge draw."""
+        uniform = self._edge_draw(self.edge_draws)
+        self.edge_draws += 1
+        return uniform
+
     def _round(self, dags: DagState, bstate: Optional[BankState], tick: int,
                part_mask: torch.Tensor):
         """One executed round: the next edge draw, the sampled mask, the merge
         and, with the bank gossiped, the chunk step. Returns (dags, bstate)."""
-        uniform = self._edge_draw(self.rounds_run)
+        uniform = self._next_uniform()
         self.rounds_run += 1
         edges = _sample_edges(uniform, tick, part_mask, self._adj, self._drop, self._stride)
         if bstate is None:
@@ -461,11 +502,45 @@ class GossipNetwork:
         pact = self.partition is not None and self.partition.active(t)
         self._run_ticks([self.tick], [pact])
 
+    def _advance_events(self, t: float) -> None:
+        """Run every continuous-time event at or before ``t`` (an f32
+        instant) as one entry point (``repro_torch.net.events``). Delivery
+        slots recycle in place, so the queue state persists across calls;
+        fire counts start from zero in each call."""
+        from repro_torch.net import events as events_lib
+
+        horizon = float(np.float32(t))
+        cfg = self.cfg
+        window = (horizon, cfg.max_events_per_advance, cfg.max_ticks_per_advance,
+                  self._part_mask, self._part_t0, self._part_t1, self._drop,
+                  self._nbr_idx, self._nbr_valid)
+        if self.bank_cfg is not None:
+            dags, bstate, self._last_srv, qt, qv, done = self._dispatch(
+                "advance_events_bank", events_lib.advance_events_bank,
+                self.replicas.dags, self.replicas.bank_state, self._last_srv, self._digest,
+                self._equeue, self._eislot, self._next_uniform, *window, self._bw_bytes,
+                self._wire_chunk_bytes, cfg.impl)
+            self.replicas = self.replicas._replace(dags=dags, bank_state=bstate)
+        else:
+            dags, qt, qv, done = self._dispatch(
+                "advance_events", events_lib.advance_events, self.replicas.dags,
+                self._equeue, self._eislot, self._next_uniform, *window, cfg.impl)
+            self.replicas = self.replicas._replace(dags=dags)
+        self._equeue = self._equeue._replace(time=qt, valid=qv)
+        self.tick += done
+        self.rounds_run += done
+        self.events_processed += done
+        self.events_capped += int(done == cfg.max_events_per_advance)
+
     def advance(self, t: float) -> None:
-        """Run every sync tick scheduled at or before simulation time ``t``
-        as one batched entry point."""
+        """Run every sync tick (or, on the events engine, every event)
+        scheduled at or before simulation time ``t`` as one batched entry
+        point."""
         if self.cfg.sync_period <= 0:
             self.converge(at_time=t)
+            return
+        if self.cfg.engine == "events":
+            self._advance_events(t)
             return
         ticks, pacts = [], []
         nt = self._next_tick_t

@@ -498,11 +498,11 @@ def test_ideal_wire_equals_run_dagfl(impl):
 
 @pytest.mark.parametrize("option", [
     dict(mesh=object()), dict(bank_gossip=BankGossipConfig(codec=DeltaCodec("int8")),
-                              engine="events"),
+                              engine="events", serve=object()),
     dict(bank_gossip=BankGossipConfig(codec=DeltaCodec("int4")), faults=object()),
-    dict(bank_gossip=BankGossipConfig(), faults=object()), dict(engine="events"),
+    dict(bank_gossip=BankGossipConfig(), faults=object()), dict(engine="events", obs=object()),
     dict(obs=object()), dict(faults=object()), dict(serve=object()),
-    dict(gossip=t_gossip.GossipConfig(engine="events")),
+    dict(gossip=t_gossip.GossipConfig(engine="events"), faults=object()),
 ])
 def test_unported_options_raise(option):
     task, nodes, gval, _ = t_exp.make_cnn_setup(num_nodes=2, seed=0)
@@ -516,15 +516,18 @@ def test_unported_network_parts_raise():
     top = t_topo.ring(3)
     for kw in (dict(mesh=object()),
                dict(bank_cfg=BankGossipConfig(codec=DeltaCodec("int8")),
-                    cfg=t_gossip.GossipConfig(engine="events")),
+                    cfg=t_gossip.GossipConfig(engine="events"), serve_cfg=object()),
                dict(bank_cfg=BankGossipConfig(codec=DeltaCodec("topk")), faults_cfg=object()),
                dict(bank_cfg=BankGossipConfig(), faults_cfg=object()), dict(obs_cfg=object()),
                dict(faults_cfg=object()), dict(serve_cfg=object()),
-               dict(cfg=t_gossip.GossipConfig(engine="events"))):
+               dict(cfg=t_gossip.GossipConfig(engine="events"), obs_cfg=object()),
+               dict(cfg=t_gossip.GossipConfig(engine="events"), faults_cfg=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP A"):
             t_gossip.GossipNetwork(dag, None, top, **kw)
     with pytest.raises(ValueError, match="impl"):
         t_gossip.GossipNetwork(dag, None, top, t_gossip.GossipConfig(impl="pallas"))
+    with pytest.raises(ValueError, match="engine"):
+        t_gossip.GossipNetwork(dag, None, top, t_gossip.GossipConfig(engine="heap"))
     with pytest.raises(NotImplementedError):
         t_replica.init_replicas(dag, None, 3, mesh=object())
     with pytest.raises(NotImplementedError):

@@ -24,6 +24,11 @@ The chunk dedup, ``kernels/chunk_transfer.py``: a bitmap, so the kernel must
 equal the plain version bitwise (``test_chunk_dedup_kernel_on_card``); the
 plain version is held against the reference in ``tests/test_torch_bank.py``.
 
+The event-queue head, ``kernels/event_pop.py``: an index, a flag, the head's
+time bits and kind, so the kernel must equal the plain version bitwise
+(``test_event_pop_kernel_on_card``), NaN and -0.0 included; the plain
+version is held against the reference in ``tests/test_torch_events.py``.
+
 The wire codec, ``kernels/delta_codec.py``: codes, scales and masked deltas
 must equal the plain versions bitwise (``test_quant_kernel_on_card``,
 ``test_topk_kernel_on_card``, ``test_encode_on_card_equals_the_cpu``); the
@@ -39,6 +44,7 @@ from repro_torch.core import bank as t_bank
 from repro_torch.kernels import chunk_transfer as t_ck
 from repro_torch.kernels import delta_codec as t_dc
 from repro_torch.kernels import cuda_build
+from repro_torch.kernels import event_pop as t_pop
 from repro_torch.kernels import fedavg as t_fedavg
 from repro_torch.kernels import gossip_merge as t_gm
 
@@ -469,3 +475,44 @@ def test_afford_divides_exactly_on_card(cuda):
         budget = torch.arange(0, 4096, dtype=torch.float32) * np.float32(chunk)
         got = t_net_bank._afford(budget.to(cuda), chunk).cpu()
         assert torch.equal(got, t_net_bank._afford(budget, chunk)), chunk
+
+
+def pop_queue(rng, q, times, device):
+    """(time, kind, seq, valid) of a queue with ties on time, kind and seq."""
+    t = rng.choice(np.asarray(times, np.float32), q).astype(np.float32)
+    k = rng.integers(0, 4, q).astype(np.int32)
+    s = rng.integers(0, 6, q).astype(np.int32)
+    v = rng.random(q) < rng.choice([0.0, 0.3, 0.7, 1.0])
+    return [torch.from_numpy(x).to(device) for x in (t, k, s, v)]
+
+
+POP_TIMES = {"ties": [0.25, 1.0, 1.5, 7.75], "signed_zeros": [-0.0, 0.0, 0.5, -1.0],
+             "inf_and_nan": [np.inf, 1.0, np.nan, -np.inf, 1.0]}
+
+
+def test_event_pop_wrapper_launches_nothing_off_the_card():
+    args = pop_queue(np.random.default_rng(0), 33, POP_TIMES["ties"] + [np.inf], "cpu")
+    before = cuda_build.LAUNCHES["event_pop"]
+    head = t_pop.event_head(*args)
+    idx, found = t_pop.event_pop(*args)
+    assert cuda_build.LAUNCHES["event_pop"] == before
+    assert head.dtype == torch.int32 and head.shape == (4,)
+    assert (int(head[0]), bool(head[1])) == (int(idx), bool(found))
+    source = cuda_build.CSRC / "event_pop.cu"
+    cmd = cuda_build.build_command("nvcc", source, "x.so")
+    assert source.exists() and "arch=compute_90a,code=sm_90a" in cmd and cmd[-1] == str(source)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,times", [(1, "ties"), (70, "ties"), (1_025, "signed_zeros"),
+                                     (9_900, "ties"), (19_800, "signed_zeros"),
+                                     (9_965, "inf_and_nan")])
+def test_event_pop_kernel_on_card(cuda, q, times):
+    rng = np.random.default_rng(q)
+    for _ in range(5):
+        args = pop_queue(rng, q, POP_TIMES[times], cuda)
+        before = cuda_build.LAUNCHES["event_pop"]
+        got = t_pop.event_head(*args)
+        torch.cuda.synchronize()
+        assert cuda_build.LAUNCHES["event_pop"] == before + 1
+        assert torch.equal(got.cpu(), t_pop.event_head_plain(*(x.cpu() for x in args)))
