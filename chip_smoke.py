@@ -26,19 +26,29 @@ builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (into
    defaults, which must equal the ticks run bitwise, (b) with the unlimited
    bank, which must equal (a), (c) the 1 Mbit/s class with 0.5 s links, raw
    and int4, beside the ticks runs of the same config, (d) a jittered
-   8-regular overlay, cut in depth; and (2f) the §IV in-system tip
+   8-regular overlay, cut in depth; (2f) the §IV in-system tip
    simulation at Table-I size and at the reference's bench point; each
-   path under ``torch.profiler`` too, shorter;
+   path under ``torch.profiler`` too, shorter; and (2g) telemetry
+   (``obs=ObsConfig(hist=HistConfig())``) on the ticks main path, the
+   Table-I bank, int4 over 1 Mbit/s and the events engine's path (c), each
+   run with telemetry off and on (bitwise the same run; the histogram
+   bincount launched per round), the ticks path profiled with telemetry
+   on, and the Table-I tip simulation with ``record_trace=True``;
 3. runs a small ``run_dagfl``, a small ``run_dagfl_gossip`` (a lossy ring
    with a partition), a small banked one (the same ring, starved) and the
    same with the int8 codec on the card and on the CPU with the same draws
    and checks that they agree; encodes the same full-width payloads on the
    card and on the CPU, bitwise; and (3e) the same small runs on the events
-   engine (jittered links) and a small tip simulation, card against CPU.
+   engine (jittered links) and a small tip simulation, card against CPU;
+   (3g) small runs with telemetry on (the ticks ring, the starved banked
+   ticks ring raw and with int8, the banked events ring, a traced tip
+   simulation): histogram counts and trace records of the card equal the
+   CPU's bitwise.
 
-Phase 1 of the merge-winner, chunk-dedup, codec and event-queue kernels runs
-last, after phase 3; the digest check (bank table against one payload,
-bitwise) runs before phase 2c.
+Phase 1 of the merge-winner, chunk-dedup, codec, event-queue and histogram
+kernels runs last, after phase 3 (1f also holds ``bin_index`` on the card
+against the CPU at every f32 edge and the sync-period multiples); the
+digest check (bank table against one payload, bitwise) runs before phase 2c.
 
 Prints one JSON line of kernel numbers, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, on
@@ -94,6 +104,8 @@ TIP_SIM_HORIZON = 600.0
 TIP_SIM_PENDING = 64            # simulate_insystem_tips' max_pending
 TIP_SIM_SEEDS = (0, 1, 2, 3, 4, 5)
 SPIN_CYCLES = 40_000_000    # about 20 ms at the H100's 1.98 GHz boost clock
+HIST_BINS = 65              # HistConfig(): 64 log-spaced bins and the overflow bin
+OBS_ITERATIONS = 100        # phase 2g's depth: each path runs twice (telemetry off, on)
 
 
 class SmokeFailure(Exception):
@@ -668,8 +680,11 @@ def phase_profile(system="run_dagfl", label=None, **options):
                                        **options)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t)
+    # device events, without the ranges telemetry's annotations
+    # (``repro_torch.net.<entry point>``) mirror onto the device timeline
     spans = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not e.name.startswith("repro_torch.")]
     label = label or system
     if not spans:
         return {"system": label, "iterations": PROFILED_ITERATIONS, "wall_ms": wall_ms,
@@ -687,7 +702,7 @@ def phase_profile(system="run_dagfl", label=None, **options):
         "device_ops": len(spans),
     }
     for kernel in ("fedavg_gather", "gossip_winner", "chunk_dedup", "quant_blocks",
-                   "topk_blocks", "event_pop"):
+                   "topk_blocks", "event_pop", "hist_bincount"):
         us = [end - start for start, end, name in spans if f"{kernel}_kernel" in name]
         out[f"{kernel}_in_loop"] = {"launches": len(us), "ms_total": sum(us) / 1e3,
                                     "ms_mean": sum(us) / 1e3 / max(len(us), 1)}
@@ -1373,6 +1388,349 @@ def phase_small_tip_agreement():
     return {"published": g.published, "overflow": g.overflow, "tail_mean": g.tail_mean(0.5)}
 
 
+# ---------------------------------------------------------------------------
+# telemetry: the histogram bincount (1f), obs at full width (2g), card vs CPU (3g)
+# ---------------------------------------------------------------------------
+
+
+def hist_batch(gen, case, num_bins=HIST_BINS):
+    """(idx, w) i32 on the card shaped like one of the loop's bincounts:
+    ``merge`` bins R * cap latencies of sync-period multiples, a few rows
+    changed; ``commit`` the cap rows of replica 0, a few newly propagated;
+    ``chunk`` R * S chunk completions of 0-4 chunks; ``uniform`` every bin,
+    out-of-range and negative indices among them."""
+    from repro_torch.obs import hist as hist_lib
+
+    m = {"merge": MAIN_NODES * MAIN_SLOTS, "commit": MAIN_SLOTS,
+         "chunk": MAIN_NODES * MAIN_SLOTS, "uniform": MAIN_NODES * MAIN_SLOTS}[case]
+    if case == "uniform":
+        idx = torch.randint(-3, num_bins + 3, (m,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        w = torch.randint(1, 4, (m,), generator=gen, device="cuda", dtype=torch.int32)
+        return idx, w
+    lat = 0.25 * torch.randint(1, 33, (m,), generator=gen, device="cuda").float()
+    idx = hist_lib.bin_index(lat, hist_lib.HistConfig(bins=num_bins - 1))
+    p = {"merge": 0.02, "commit": 0.01, "chunk": 0.05}[case]
+    w = (torch.rand((m,), generator=gen, device="cuda") < p).to(torch.int32)
+    if case == "chunk":
+        w *= torch.randint(1, MAIN_CHUNKS + 1, (m,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    return idx, w
+
+
+def hist_case(hb, name, case, gen, reps=200):
+    """One shape of the histogram bincount: the kernel bitwise against the
+    plain version on the same card tensors, then times: the kernel, the
+    plain version, ``torch.bincount`` (the library yardstick; it reads the
+    largest index back to size its output, so it is timed with the host in
+    the loop), and the byte bound."""
+    args_list = [hist_batch(gen, case) for _ in range(8)]
+    max_abs_err = 0
+    for idx, w in args_list:
+        got = hb.hist_bincount(idx, w, HIST_BINS)
+        want = hb.hist_bincount_plain(idx, w, HIST_BINS)
+        torch.cuda.synchronize()
+        max_abs_err = max(max_abs_err, int((got.long() - want.long()).abs().max()))
+        check(torch.equal(got, want), f"hist_bincount {name}: kernel != plain "
+                                      f"({max_abs_err} off)")
+    ms = device_ms(lambda i, w: hb.hist_bincount(i, w, HIST_BINS), args_list * (reps // 8))
+    plain_ms = device_ms(lambda i, w: hb.hist_bincount_plain(i, w, HIST_BINS), args_list * 4)
+    call = call_ms(lambda i, w: hb.hist_bincount(i, w, HIST_BINS), args_list * 8)
+    lib_args = [(i.clamp(0, HIST_BINS).long(), w.float()) for i, w in args_list]
+    library_ms = call_ms(lambda i, w: torch.bincount(i, weights=w, minlength=HIST_BINS + 1),
+                         lib_args * 4)
+    m = int(args_list[0][0].shape[0])
+    nbytes = 4 * m + 4 * m + 4 * HIST_BINS       # idx and w read once, the bins written once
+    return {"case": name, "batch": case, "m": m, "num_bins": HIST_BINS,
+            "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms, "call_ms": call,
+            "library_ms": library_ms,
+            "library": "torch.bincount(idx, weights=w, minlength=num_bins), host in the loop",
+            "bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S, "bound_by": "bytes",
+            "bound_bytes": nbytes}
+
+
+def phase_hist_kernel(hb):
+    """Phase 1f: the histogram bincount against its plain version at the
+    loop's shapes, and ``bin_index`` on the card against the CPU, bitwise,
+    at every f32 edge, its neighbours and the sync-period multiples."""
+    from repro_torch.obs import hist as hist_lib
+
+    cfg = hist_lib.HistConfig()
+    e = hist_lib.edges(cfg).astype(np.float32)
+    values = np.concatenate([e, np.nextafter(e, np.float32(np.inf)),
+                             np.nextafter(e, np.float32(-np.inf)),
+                             np.arange(1, 33, dtype=np.float32) * np.float32(0.25),
+                             np.float32([0.0, -1.0, np.inf, np.nan, 3e38])])
+    rng = np.random.default_rng(7)
+    values = np.concatenate([values, np.exp(rng.uniform(-12, 12, 100_000)).astype(np.float32)])
+    cpu = hist_lib.bin_index(torch.from_numpy(values), cfg)
+    card = hist_lib.bin_index(torch.from_numpy(values).cuda(), cfg).cpu()
+    bad = (card != cpu).nonzero().flatten()
+    check(bad.numel() == 0, f"bin_index: card differs from the CPU at "
+                            f"{values[bad[:5].numpy()].tolist()}: {card[bad[:5]].tolist()} vs "
+                            f"{cpu[bad[:5]].tolist()}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    cases = [hist_case(hb, name, name, gen) for name in ("merge", "commit", "chunk", "uniform")]
+    return {"bin_index_values_checked": int(values.shape[0]), "cases": cases}
+
+
+def obs_runs():
+    """Phase 2g's four paths, each run with telemetry off and on: the ticks
+    main path, the Table-I bank, int4 over 1 Mbit/s, and the events engine's
+    path (c) with int4."""
+    return {
+        "ticks_main": {},
+        "bank_table1": bank_runs()["table1"],
+        "codec_1mbps_int4": constrained_runs()["int4"],
+        "events_c_1mbps_lat0.5_int4": dict(events_constrained_runs()["int4"], engine="events"),
+    }
+
+
+def full_width_run(cuda_build, iterations, **options):
+    """One full-width ``run_dagfl_gossip`` with the launch counts set to 0
+    just before it and read just after; returns (result without the bank,
+    wall seconds, launches)."""
+    from repro_torch.configs.dagfl_paper_tasks import CNN_TASK
+    from repro_torch.fl.systems import SimConfig, run_dagfl_gossip
+    from repro_torch.fl.tasks import CNNTask
+
+    dcfg = CNN_TASK.dagfl
+    nodes, gval = paper_setup(dcfg.num_nodes, 28)
+    sim = SimConfig(iterations=iterations, eval_every=EVAL_EVERY, minibatch=dcfg.minibatch)
+    torch.cuda.synchronize()
+    cuda_build.LAUNCHES.clear()
+    t = time.perf_counter()
+    res = run_dagfl_gossip(CNNTask(), nodes, dcfg, sim, gval, device="cuda", **options)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t
+    return res_without_bank(res), wall_s, dict(cuda_build.LAUNCHES)
+
+
+def export_sizes(report, stem):
+    """Write a report as JSONL and as a Chrome trace under build/obs/:
+    seconds and bytes of each."""
+    from repro_torch import obs as obs_lib
+
+    out_dir = ROOT / "build" / "obs"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    out = {}
+    for kind, write, suffix in (("jsonl", obs_lib.write_metrics_jsonl, ".jsonl"),
+                                ("chrome_trace", obs_lib.write_chrome_trace, ".trace.json")):
+        path = out_dir / f"{stem}{suffix}"
+        t = time.perf_counter()
+        write(report, str(path))
+        out[f"{kind}_s"] = time.perf_counter() - t
+        out[f"{kind}_bytes"] = path.stat().st_size
+    return out
+
+
+def hist_percentiles(report):
+    return {name: {k: s[k] for k in ("samples", "p50", "p95", "p99")}
+            for name, s in report.hist["percentiles"].items() if s["samples"] > 0}
+
+
+def obs_pair(cuda_build, name, options):
+    """One path with telemetry off, then on: the two runs bitwise equal,
+    floats included (telemetry only reads), and the obs-on run's launches
+    those of the obs-off run plus, per sample taken, one union fold (a
+    winner launch) and with the bank one chunk count (a dedup launch), and
+    per round or event batch one bincount per histogram it feeds (merge and
+    commit latency; chunk latency with the bank), and the report's final
+    scalars one more fold and one more dedup."""
+    from repro_torch.obs import HistConfig, ObsConfig
+    from repro_torch.obs import trace as obs_trace
+
+    cfg = ObsConfig(hist=HistConfig())
+    off, off_s, off_launches = full_width_run(cuda_build, OBS_ITERATIONS, **options)
+    on, on_s, on_launches = full_width_run(cuda_build, OBS_ITERATIONS, obs=cfg, **options)
+    what = f"obs {name}"
+    bank = "bank_gossip" in options
+    if bank:
+        check_same_bank_run(what, on, off, 0.0)
+    else:
+        check_same_run(what, on, off)
+    check_same_floats(what, on, off)
+    for key in ("edge_draws", "events_processed", "dispatch_counts"):
+        check(on.extras[key] == off.extras[key], f"{what}: {key} differs")
+    rep = on.extras["obs"]
+    rounds = on.extras["sync_rounds"]
+    taken = min(rounds, cfg.series_capacity)
+    check(rep.rounds == rounds and rep.samples == taken
+          and rep.samples_dropped == rounds - taken,
+          f"{what}: {rep.rounds} rounds, {rep.samples} samples for {rounds} rounds")
+    expected = dict(off_launches)
+    expected["gossip_winner"] = expected.get("gossip_winner", 0) + taken + 1
+    if bank:
+        expected["chunk_dedup"] = expected.get("chunk_dedup", 0) + taken + 1
+    expected["hist_bincount"] = rounds * (3 if bank else 2)
+    for kernel in set(expected) | set(on_launches):
+        check(on_launches.get(kernel, 0) == expected.get(kernel, 0),
+              f"{what}: {kernel} launched {on_launches.get(kernel, 0)} times, expected "
+              f"{expected.get(kernel, 0)}")
+    kinds = rep.trace["kind"]
+    commits = int((kinds == obs_trace.KIND_COMMIT).sum())    # the ledger's host spans
+    check(commits == OBS_ITERATIONS, f"{what}: {commits} COMMIT records")
+    check(rep.hist["counts"]["merge_lat"].sum() > 0
+          and rep.hist["counts"]["commit_lat"].sum() > 0, f"{what}: empty latency histograms")
+    if bank:
+        check(rep.hist["counts"]["chunk_lat"].sum() > 0, f"{what}: no chunk completion sampled")
+        # the ring keeps its first records: at full width the first rounds'
+        # 9,900 deliveries fill it before any payload moves
+        check(rep.trace_dropped > 0 or (kinds == obs_trace.KIND_DRAIN).any(),
+              f"{what}: no DRAIN record, none dropped")
+    out = {
+        "iterations": OBS_ITERATIONS, "engine": options.get("engine", "ticks"),
+        "ms_per_iteration_obs_off": 1e3 * off_s / OBS_ITERATIONS,
+        "ms_per_iteration_obs_on": 1e3 * on_s / OBS_ITERATIONS,
+        "rounds": rounds, "samples": rep.samples, "samples_dropped": rep.samples_dropped,
+        "trace_records": rep.trace_records, "trace_dropped": rep.trace_dropped,
+        "hist": hist_percentiles(rep), "launches_obs_on": on_launches,
+        "launches_obs_off": off_launches,
+    }
+    if name == "ticks_main":
+        out["export"] = export_sizes(rep, name)
+    return out
+
+
+def phase_obs_main_path(cuda_build, tip_table1):
+    """Phase 2g: telemetry at full width on four paths (``obs_pair``), the
+    ticks main path profiled with telemetry on, and the Table-I tip
+    simulation with ``record_trace=True``, which must be phase 2f's run
+    (same seed) with its PUBLISH/COMMIT records beside it."""
+    from repro_torch.configs.dagfl_paper_tasks import CNN_TASK
+    from repro_torch.core import stability
+    from repro_torch.net.events import simulate_insystem_tips
+    from repro_torch.net.topology import full
+    from repro_torch.obs import HistConfig, ObsConfig
+    from repro_torch.obs import trace as obs_trace
+
+    out = {}
+    for name, options in obs_runs().items():
+        t = time.perf_counter()
+        out[name] = obs_pair(cuda_build, name, options)
+        out[name]["pair_s"] = time.perf_counter() - t
+    out["profile_ticks_main_obs_on"] = phase_profile(
+        "run_dagfl_gossip", label="run_dagfl_gossip(obs=ObsConfig(hist=HistConfig()))",
+        obs=ObsConfig(hist=HistConfig()))
+
+    dcfg = CNN_TASK.dagfl
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    trace = simulate_insystem_tips(
+        full(MAIN_NODES), h=stability.iteration_delay(dcfg, TIP_SIM_F),
+        arrival_rate=dcfg.arrival_rate, k=dcfg.k, tau_max=dcfg.tau_max, horizon=TIP_SIM_HORIZON,
+        capacity=MAIN_SLOTS, seed=0, sync_period=0.25, max_pending=TIP_SIM_PENDING,
+        record_trace=True)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t
+    check(trace.published == tip_table1["published"]
+          and trace.tail_mean(0.5) == tip_table1["tail_mean"],
+          f"tip sim with its trace: {trace.published} published, tail {trace.tail_mean(0.5)}, "
+          f"not phase 2f's {tip_table1['published']}, {tip_table1['tail_mean']}")
+    kinds = trace.trace["kind"]
+    commits = int((kinds == obs_trace.KIND_COMMIT).sum())
+    publishes = int((kinds == obs_trace.KIND_PUBLISH).sum())
+    check(trace.trace_dropped == 0 and commits == trace.published
+          and trace.published <= publishes <= trace.published + TIP_SIM_PENDING,
+          f"tip sim trace: {publishes} PUBLISH, {commits} COMMIT, {trace.trace_dropped} dropped "
+          f"for {trace.published} published")
+    report = trace.to_report()
+    check(report.samples == len(trace.times) and report.trace_records == commits + publishes,
+          f"tip sim report: {report.samples} samples, {report.trace_records} records")
+    out["tip_sim_trace"] = {"published": trace.published, "commit_records": commits,
+                            "report_num_nodes": report.num_nodes,
+                            "publish_records": publishes, "trace_dropped": trace.trace_dropped,
+                            "wall_s": wall_s, "export": export_sizes(report, "tip_sim")}
+    return out
+
+
+def check_same_report(what, a, b):
+    """Two ``ObsReport``s of the same run on two devices: counters, every
+    integer series, the trace records and the histogram counts bitwise; the
+    f32 byte sums within 1e-6 relative (a sum's order differs by device)."""
+    check((a.rounds, a.samples_dropped, a.trace_dropped) == (b.rounds, b.samples_dropped,
+                                                             b.trace_dropped),
+          f"{what}: counters differ")
+    for name in a.series:
+        x, y = a.series[name], b.series[name]
+        same = (np.allclose(x, y, rtol=1e-6, atol=0) if name == "bytes_total"
+                else np.array_equal(x, y))
+        check(same, f"{what}: series {name} differs")
+    for name in a.trace:
+        check(np.array_equal(a.trace[name], b.trace[name]), f"{what}: trace {name} differs")
+    for name, counts in a.hist["counts"].items():
+        check(np.array_equal(counts, b.hist["counts"][name]), f"{what}: hist {name} differs")
+    check(np.array_equal(a.rows_merged, b.rows_merged), f"{what}: rows_merged differs")
+
+
+def phase_small_obs_agreement():
+    """Phase 3g: small runs with telemetry on, on the card and on the CPU
+    with the same draws: the lossy ring with a partition on the ticks
+    engine, bankless and with phase 3c's starved bank raw and with phase
+    3d's int8 codec (chunk latencies and DRAIN records), the starved
+    jittered ring with the bank on the events engine, and a small tip
+    simulation with its trace. Reports bitwise (byte sums within 1e-6)."""
+    from repro_torch.fl.experiments import default_dagfl_config, make_cnn_setup
+    from repro_torch.fl.systems import SimConfig, run_dagfl_gossip
+    from repro_torch.kernels.delta_codec import DeltaCodec
+    from repro_torch.net.bank import BankGossipConfig
+    from repro_torch.net.events import simulate_insystem_tips
+    from repro_torch.net.gossip import PartitionSchedule
+    from repro_torch.net.topology import ring, split_halves
+    from repro_torch.obs import KIND_DRAIN, HistConfig, ObsConfig
+
+    n = 8
+    dcfg = default_dagfl_config(num_nodes=n)
+    sim = SimConfig(iterations=20, eval_every=5, seed=0)
+
+    def starved(codec=None):
+        return BankGossipConfig(chunks_per_slot=MAIN_CHUNKS, slot_bytes=TABLE1_SLOT_BYTES,
+                                codec=codec)
+
+    starved_ring = ring(n, drop=0.3, link_latency=1.5, bandwidth=1e7)
+    arms = {
+        "ticks": dict(topology=ring(n, drop=0.3, link_latency=1.5)),
+        "ticks_bank": dict(topology=starved_ring, bank_gossip=starved()),
+        "ticks_bank_int8": dict(topology=starved_ring, bank_gossip=starved(DeltaCodec("int8"))),
+        "events_bank": dict(topology=ring(n, drop=0.3, link_latency=0.5, latency_jitter=1.0,
+                                          bandwidth=1e7), engine="events",
+                            bank_gossip=starved()),
+    }
+    out = {}
+    for arm, options in arms.items():
+        reps = {}
+        for device in ("cuda", "cpu"):
+            task, nodes, gval, _ = make_cnn_setup(num_nodes=n, seed=0)
+            draw, edge_draw = small_draws(device, n, dcfg.capacity)
+            res = run_dagfl_gossip(
+                task, nodes, dcfg, sim, gval,
+                partition=PartitionSchedule(split_halves(n), 5.0, 12.0), device=device,
+                draw=draw, edge_draw=edge_draw, obs=ObsConfig(hist=HistConfig()), **options)
+            reps[device] = res.extras["obs"]
+        check_same_report(f"obs small {arm}", reps["cuda"], reps["cpu"])
+        rep = reps["cuda"]
+        if "bank_gossip" in options:
+            check(rep.hist["counts"]["chunk_lat"].sum() > 0
+                  and (rep.trace["kind"] == KIND_DRAIN).any(),
+                  f"obs small {arm}: no chunk latency sampled or no DRAIN record")
+        out[arm] = {"rounds": rep.rounds, "trace_records": rep.trace_records,
+                    "hist_samples": {k: int(v.sum()) for k, v in rep.hist["counts"].items()}}
+    cap = 64
+    traces = {}
+    for device in ("cuda", "cpu"):
+        traces[device] = simulate_insystem_tips(
+            ring(n, link_latency=0.5, latency_jitter=1.0, drop=0.3),
+            h=np.linspace(0.5, 6.0, n), arrival_rate=2.0, k=2, tau_max=20.0, horizon=60.0,
+            capacity=cap, sync_period=0.5, max_pending=4, record_trace=True, device=device,
+            draw=tip_draws(device, n, cap))
+    for name in traces["cpu"].trace:
+        check(np.array_equal(traces["cuda"].trace[name], traces["cpu"].trace[name]),
+              f"obs small tip sim: trace {name} differs")
+    out["tip_sim"] = {"trace_records": int(traces["cuda"].trace["t"].shape[0])}
+    return out
+
+
 def nvidia_smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1393,7 +1751,7 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.device import resolve_device
     from repro_torch.kernels import chunk_transfer, cuda_build, delta_codec, event_pop, fedavg
-    from repro_torch.kernels import gossip_merge
+    from repro_torch.kernels import gossip_merge, hist_bincount
 
     resolve_device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -1441,8 +1799,13 @@ def main() -> int:
         print(json.dumps({"events_main_path": events_paths}))
         print(f"[phase 2e] events engine paths: {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
-        print(json.dumps({"tip_sims": phase_tip_sims(cuda_build)}))
+        tip_sims = phase_tip_sims(cuda_build)
+        print(json.dumps({"tip_sims": tip_sims}))
         print(f"[phase 2f] tip simulations: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        obs_paths = phase_obs_main_path(cuda_build, tip_sims["e_table1"]["runs"][0])
+        print(json.dumps({"obs_main_path": obs_paths}))
+        print(f"[phase 2g] telemetry paths: {time.perf_counter() - t:.1f} s")
         print(json.dumps({"profile_events": phase_profile(
             "run_dagfl_gossip",
             label="run_dagfl_gossip(engine=events, 1 Mbit/s, 0.5 s links, int4)",
@@ -1465,6 +1828,9 @@ def main() -> int:
             delta_codec.DeltaCodec("int8"), engine="events")}))
         print(json.dumps({"small_tip_agreement": phase_small_tip_agreement()}))
         print(f"[phase 3e] events engine, card against CPU: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        print(json.dumps({"small_obs_agreement": phase_small_obs_agreement()}))
+        print(f"[phase 3g] telemetry, card against CPU: {time.perf_counter() - t:.1f} s")
         gossip_cases = phase_gossip_kernel(gossip_merge)
         print(json.dumps({"gossip_cases": gossip_cases}))
         dedup_cases = phase_dedup_kernel(chunk_transfer)
@@ -1478,6 +1844,10 @@ def main() -> int:
         pop_cases = phase_event_pop_kernel(event_pop)
         print(json.dumps({"event_pop_cases": pop_cases}))
         print(f"[phase 1e] event_pop vs plain: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        hist_cases = phase_hist_kernel(hist_bincount)
+        print(json.dumps({"hist_bincount_cases": hist_cases}))
+        print(f"[phase 1f] hist_bincount vs plain: {time.perf_counter() - t:.1f} s")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1564,6 +1934,22 @@ def main() -> int:
         "bound_ms": pop_main["bound_ms"],
         "bound_by": pop_main["bound_by"],
         "library_ms": None,          # no single PyTorch call takes a lexicographic argmin
+    })
+    hist_main = next(c for c in hist_cases["cases"] if c["case"] == "merge")
+    kernels.append({
+        "name": "hist_bincount",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/hist_bincount.cu",
+        "replaces": "src/repro/kernels/hist_bincount.py:52",
+        "launches": obs_paths["ticks_main"]["launches_obs_on"].get("hist_bincount", 0),
+        "max_abs_err": max(c["max_abs_err"] for c in hist_cases["cases"]),
+        "ms": hist_main["ms"],
+        "kernel_ms": hist_main["ms"],
+        "call_ms": hist_main["call_ms"],
+        "plain_ms": hist_main["plain_ms"],
+        "bound_ms": hist_main["bound_ms"],
+        "bound_by": hist_main["bound_by"],
+        "library_ms": hist_main["library_ms"],   # torch.bincount, host in the loop
     })
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

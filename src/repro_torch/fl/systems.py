@@ -21,7 +21,9 @@ ledger replica, synced by anti-entropy gossip over an overlay
 (``repro_torch.net``); its edge draws go through ``edge_draw`` the same way
 (``repro_torch.net.gossip``). With ``bank_gossip`` the model payloads travel
 too, priced per link (``repro_torch.net.bank``), and a node sees only the
-transactions whose models it has received.
+transactions whose models it has received. With ``obs`` the overlay's
+telemetry runs in every loop and ``extras["obs"]`` holds the drained
+``ObsReport`` (``repro_torch.obs``).
 """
 from __future__ import annotations
 
@@ -48,6 +50,7 @@ from repro_torch.fl.tasks import make_epoch_train
 from repro_torch.net import gossip as gossip_lib
 from repro_torch.net import replica as replica_lib
 from repro_torch.net import topology as topo_lib
+from repro_torch.obs import trace as obs_trace
 
 UniformDraw = Callable[[str, int], torch.Tensor]
 
@@ -167,9 +170,9 @@ def _identity_train(params, batch):
 class _SharedLedger:
     """One instantly-consistent global DAG — the paper's idealized runtime.
 
-    The loop's backend hooks (``advance``, ``on_start``, ``fault_bias``,
-    ``observe``, ``extras``) are no-ops here, so ``run_dagfl`` is what it
-    was before the gossip backend shared the loop.
+    The loop's backend hooks (``advance``, ``on_start``, ``on_commit``,
+    ``fault_bias``, ``observe``, ``extras``) are no-ops here, so
+    ``run_dagfl`` is what it was before the gossip backend shared the loop.
     """
 
     name = "dagfl"
@@ -185,6 +188,9 @@ class _SharedLedger:
         pass
 
     def on_start(self, node_id, t0, t1):
+        pass
+
+    def on_commit(self, node_id, t1):
         pass
 
     def fault_bias(self):
@@ -270,6 +276,7 @@ def _run_dagfl_events(task, nodes, dcfg, sim, global_val, weighted, make_backend
             backend.advance(t1)
         with clock("commit"):
             backend.commit(nid, f32(t1), prepared)
+        backend.on_commit(nid, t1)
         done += 1
         if done == sim.iterations // 2 and not mid_snapshot:
             mid_snapshot.update(_counter_snapshot(backend.union_dag()))
@@ -367,9 +374,11 @@ class _GossipLedger:
 
     name = "dagfl_gossip"
 
-    def __init__(self, state, topology, gossip, partition, bank_gossip=None, edge_draw=None):
+    def __init__(self, state, topology, gossip, partition, bank_gossip=None, edge_draw=None,
+                 obs=None):
         self.net = gossip_lib.GossipNetwork(state.dag, state.bank, topology, gossip, partition,
-                                            bank_cfg=bank_gossip, edge_draw=edge_draw)
+                                            bank_cfg=bank_gossip, obs_cfg=obs,
+                                            edge_draw=edge_draw)
         self.capacity = int(state.dag.publisher.shape[0])
         self.seq = int(state.dag.count)       # genesis consumed sequence 0
         # distinct approvals issued, counted on the device, read once in extras
@@ -397,7 +406,13 @@ class _GossipLedger:
         self.net.advance(t)
 
     def on_start(self, node_id, t0, t1):
-        pass
+        # the iteration's span for the event trace (no-op without telemetry)
+        self.net.trace_span(t0, obs_trace.KIND_PUBLISH, node_id, node_id, t1 - t0)
+
+    def on_commit(self, node_id, t1):
+        # the landed transaction's span (arg: its global sequence number);
+        # t1 is the host's instant, not the f32 tensor the commit took
+        self.net.trace_span(t1, obs_trace.KIND_COMMIT, node_id, node_id, float(self.seq - 1))
 
     def fault_bias(self):
         return None
@@ -451,6 +466,9 @@ class _GossipLedger:
                 "bank_lag_curve": np.asarray(self.bank_lag, dtype=np.float64),
             }
             replicas = replicas._replace(bank_state=replica_lib.snapshot(replicas.bank_state))
+        if self.net.obs_cfg is not None:
+            # drained telemetry: metric series, trace, histograms, dispatches
+            out["obs"] = self.net.obs_report()
         return out | {
             # a copy: the replicas are written in place
             "replicas": replicas._replace(dags=replica_lib.snapshot(replicas.dags)),
@@ -517,13 +535,22 @@ def run_dagfl_gossip(
     identical. ``extras["events_processed"]`` counts the event batches.
 
     ``draw`` and ``edge_draw`` replace the tip-selection and edge draws
-    (``run_dagfl``, ``repro_torch.net.gossip``). ``mesh``, ``obs``,
-    ``faults`` and ``serve`` are not ported yet and raise
-    ``NotImplementedError``, alone or with ``bank_gossip``, its codec or
-    ``engine="events"``.
+    (``run_dagfl``, ``repro_torch.net.gossip``).
+
+    ``obs`` (a ``repro_torch.obs.ObsConfig``) turns on the overlay's
+    telemetry: metric series, the event trace (with the ledger's PUBLISH and
+    COMMIT spans) and, with ``ObsConfig.hist``, the streaming histograms,
+    collected in every round as pure reads and drained into
+    ``extras["obs"]`` (an ``ObsReport``; ``repro_torch.obs.export`` writes
+    it as a Chrome trace or JSONL). The obs-on run is bitwise the obs-off
+    run.
+
+    ``mesh``, ``faults`` and ``serve`` are not ported yet and raise
+    ``NotImplementedError``, alone or with ``bank_gossip``, its codec,
+    ``obs`` or ``engine="events"``.
     """
-    gossip_lib._unported(mesh=(mesh, "ROADMAP A.12"), obs=(obs, "ROADMAP A.9"),
-                         faults=(faults, "ROADMAP A.10"), serve=(serve, "ROADMAP A.11"))
+    gossip_lib._unported(mesh=(mesh, "ROADMAP A.12"), faults=(faults, "ROADMAP A.10"),
+                         serve=(serve, "ROADMAP A.11"))
     if topology is None:
         topology = topo_lib.full(len(nodes))
     if gossip is None:
@@ -533,6 +560,7 @@ def run_dagfl_gossip(
     return _run_dagfl_events(
         task, nodes, dcfg, sim, global_val, weighted,
         lambda state, commit_fn: _GossipLedger(state, topology, gossip, partition,
-                                               bank_gossip=bank_gossip, edge_draw=edge_draw),
+                                               bank_gossip=bank_gossip, edge_draw=edge_draw,
+                                               obs=obs),
         device, draw,
     )

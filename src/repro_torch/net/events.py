@@ -42,6 +42,15 @@ then completions land, then new iterations read):
   ``KIND_INFER``    inference serving (a constant only: serving is not
                     ported yet, ROADMAP A.11).
 
+Telemetry: both advances take an ``observe`` callback, called after every
+batch with ``(t, old_dags, dags, live, old_bstate, bstate)`` (the
+``GossipNetwork``'s ``observe_round`` step; None runs nothing). The batch
+bodies are functional, so the pre-batch state is the loop's own.
+``simulate_insystem_tips(record_trace=True)`` records a PUBLISH span per
+started iteration and a COMMIT per landed transaction in a device trace
+ring, and ``InSystemTrace.to_report`` exports a run in the ``repro_torch.obs``
+format.
+
 Draws. Every delivery batch draws one (N, N) edge uniform, through the
 caller's ``next_uniform()`` (``GossipNetwork`` indexes its ``edge_draw`` by
 the delivery rounds drawn so far); a drain-only batch draws nothing, as in
@@ -69,6 +78,7 @@ from repro_torch.net import bank as bank_lib
 from repro_torch.net import gossip as gossip_lib
 from repro_torch.net import replica as replica_lib
 from repro_torch.net.topology import Topology, neighbor_table, partition_matrix
+from repro_torch.obs import trace as obs_trace
 
 KIND_DELIVER = 0   # anti-entropy delivery on edge (src -> dst)
 KIND_DRAIN = 1     # bank chunk-drain completion on edge (src -> dst)
@@ -79,6 +89,7 @@ KIND_INFER = 4     # inference-serving slot (sorts after every transport kind)
 _INT32_MAX = torch.iinfo(torch.int32).max
 
 NextUniform = Callable[[], torch.Tensor]
+Observe = Callable[..., None]
 
 
 class EventQueue(NamedTuple):
@@ -225,11 +236,12 @@ def _deliver_round(dags: DagState, qt, fires, uniform, t: float, qv, qkind, qsrc
 
 def advance_events(dags: DagState, queue: EventQueue, islot, next_uniform: NextUniform,
                    horizon: float, limit: int, fire_cap: int, part_mask, part_t0: float,
-                   part_t1: float, drop, nbr_idx, nbr_valid, impl: str):
+                   part_t1: float, drop, nbr_idx, nbr_valid, impl: str,
+                   observe: Optional[Observe] = None):
     """The event-driven ``advance`` without the bank (the reference's
-    ``_advance_events_jit`` body with no telemetry, faults or serving):
-    every batch is one ``_deliver_round``. ``horizon``, ``part_t0`` and
-    ``part_t1`` are f32 values.
+    ``_advance_events_jit`` body without faults or serving): every batch is
+    one ``_deliver_round``, then ``observe`` when given. ``horizon``,
+    ``part_t0`` and ``part_t1`` are f32 values.
 
     Returns ``(dags, qt, qv, done)`` — ``done`` batches ran.
     """
@@ -241,9 +253,12 @@ def advance_events(dags: DagState, queue: EventQueue, islot, next_uniform: NextU
         head = _pop_head(qt, queue.kind, queue.seq, qv, horizon)
         if head is None:
             break
-        dags, qt, fires, _dlv, _live, _pm = _deliver_round(
+        old = dags
+        dags, qt, fires, _dlv, live, _pm = _deliver_round(
             dags, qt, fires, next_uniform(), head.t, qv, queue.kind, qsrc, qdst, islot,
             horizon, fire_cap, part_mask, part_t0, part_t1, drop, nbr_idx, nbr_valid, impl)
+        if observe is not None:
+            observe(head.t, old, dags, live, None, None)
         done += 1
     return dags, qt, qv, done
 
@@ -251,7 +266,8 @@ def advance_events(dags: DagState, queue: EventQueue, islot, next_uniform: NextU
 def advance_events_bank(dags: DagState, bstate: bank_lib.BankState, last_srv, digest,
                         queue: EventQueue, islot, next_uniform: NextUniform, horizon: float,
                         limit: int, fire_cap: int, part_mask, part_t0: float, part_t1: float,
-                        drop, nbr_idx, nbr_valid, bw_bytes, chunk_bytes: float, impl: str):
+                        drop, nbr_idx, nbr_valid, bw_bytes, chunk_bytes: float, impl: str,
+                        observe: Optional[Observe] = None):
     """The event-driven ``advance`` with the model bank gossiped (the
     reference's ``_advance_events_bank_jit`` plain body).
 
@@ -266,6 +282,7 @@ def advance_events_bank(dags: DagState, bstate: bank_lib.BankState, last_srv, di
     after ``t`` (so a drain always makes progress); fired drains that were suppressed
     retry one chunk-time later. ``chunk_bytes`` is the wire price of a
     chunk (an f32 value: ``chunk_bytes * wire_ratio()`` with a codec).
+    ``observe``, when given, runs after every batch.
 
     Returns ``(dags, bstate, last_srv, qt, qv, done)``.
     """
@@ -285,6 +302,7 @@ def advance_events_bank(dags: DagState, bstate: bank_lib.BankState, last_srv, di
         if head is None:
             break
         t = head.t
+        old_dags, old_bstate = dags, bstate
         batch = qv & (qt == t)
         drain = _edge_mask(n, qdst, qsrc, batch & is_drn)
         if head.kind == KIND_DELIVER:
@@ -309,6 +327,8 @@ def advance_events_bank(dags: DagState, bstate: bank_lib.BankState, last_srv, di
         qv = torch.where(is_drn & e_svc, e_pend, qv)
         qt = torch.where(is_drn & e_svc, torch.where(e_pend, e_next, torch.inf), qt)
         qt = torch.where(batch & is_drn & ~e_svc, e_retry, qt)
+        if observe is not None:
+            observe(t, old_dags, dags, live, old_bstate, bstate)
         done += 1
     return dags, bstate, last_srv, qt, qv, done
 
@@ -325,7 +345,8 @@ class InSystemTrace(NamedTuple):
     agent E) under the ``tip_mask`` rule Algorithm 2 samples from;
     ``staleness`` is the worst per-replica row lag behind that union at the
     same instants. ``union`` is the final union ledger; ``overflow`` counts
-    dropped work (pending or trace capacity).
+    dropped work (pending or trace capacity). ``trace`` holds the drained
+    PUBLISH/COMMIT records of a ``record_trace=True`` run.
     """
 
     times: np.ndarray       # (P,) f64 publish instants
@@ -341,7 +362,45 @@ class InSystemTrace(NamedTuple):
         return stability_lib.tail_mean(self.tips, frac)
 
     def to_report(self):
-        raise NotImplementedError("the telemetry export is not ported yet (ROADMAP A.9)")
+        """This trace in the shared ``repro_torch.obs`` format: an
+        ``ObsReport`` whose series are the per-publish ``t``/``tips``/
+        ``staleness`` samples and whose trace is the PUBLISH/COMMIT record
+        set (empty without ``record_trace``), so the JSONL and Chrome-trace
+        writers work on tip-simulation runs. Needs the run's ``union`` (the
+        node count is read from it) and raises ``ValueError`` without it."""
+        from repro_torch.obs.export import ObsReport
+
+        if self.union is None:
+            raise ValueError("to_report needs the run's union ledger (InSystemTrace.union)")
+        pub = self.union.publisher.cpu().numpy()
+        occ = pub >= 0
+        # genesis is published by the virtual node N: the largest occupied
+        # publisher id is the node count until ring reuse overwrites the
+        # genesis row (then N - 1), the reference's rule
+        n = int(pub[occ].max()) if occ.any() else 0
+        trace = self.trace if self.trace is not None else {
+            "t": np.zeros((0,), np.float64),
+            "kind": np.zeros((0,), np.int32),
+            "src": np.zeros((0,), np.int32),
+            "dst": np.zeros((0,), np.int32),
+            "arg": np.zeros((0,), np.float64),
+        }
+        return ObsReport(
+            num_nodes=n,
+            engine="insystem",
+            rounds=int(self.published),
+            series={
+                "t": np.asarray(self.times, np.float64),
+                "tips": np.asarray(self.tips, np.float64),
+                "staleness": np.asarray(self.staleness, np.float64),
+            },
+            rows_merged=np.zeros((n,), np.int64),
+            link_bytes=np.zeros((n, n), np.float64),
+            samples_dropped=int(self.overflow),
+            trace=trace,
+            trace_dropped=int(self.trace_dropped),
+            final={"published": float(self.published)},
+        )
 
 
 TipDraw = Callable[[str, int], object]
@@ -410,13 +469,14 @@ def simulate_insystem_tips(
     and the worst replica lag. Deliveries batch as in engine A and never
     elide. ``draw`` replaces the default draws (``torch_tip_draw``).
 
-    Runs on ``device`` (CUDA unless asked for the CPU). ``record_trace``
-    (the telemetry ring) is not ported yet and raises.
+    Runs on ``device`` (CUDA unless asked for the CPU). ``record_trace=True``
+    also keeps a device trace ring of ``2 * trace_cap + 8`` records: a
+    PUBLISH record (arg = h of the node) for each started iteration that
+    found a pending slot and a COMMIT record (arg = the global sequence) for
+    each landed transaction, drained into ``InSystemTrace.trace``.
     """
     from repro_torch.device import resolve_device
 
-    if record_trace:
-        raise NotImplementedError("record_trace is not ported yet (ROADMAP A.9)")
     if sync_period <= 0:
         raise ValueError("in-system tip sim needs a positive sync_period")
     if max_pending < 1:
@@ -473,6 +533,12 @@ def simulate_insystem_tips(
     accuracy = torch.full((), 0.5, device=dev)
     auth_tag = torch.zeros((), device=dev)
 
+    ring = obs_trace.init_trace(2 * trace_cap + 8, dev) if record_trace else None
+
+    def self_edge(node):        # (N, N) one-hot mask of node's own edge, on the device
+        ids = torch.arange(n, device=dev)
+        return (ids[:, None] == node) & (ids[None, :] == node)
+
     draws = 0
 
     def next_draw(what):
@@ -511,6 +577,9 @@ def simulate_insystem_tips(
             trace_stale[slot] = replica_lib.missing_vs_union(dags, union).max().float()
             dropped += int(cur >= trace_cap)
             cur = min(cur + 1, trace_cap)
+            if ring is not None:
+                obs_trace.append_edges(ring, head.time, obs_trace.KIND_COMMIT, self_edge(node),
+                                       float(seqc))
             seqc += 1
         else:
             node, u, gap = next_draw("start")
@@ -526,6 +595,10 @@ def simulate_insystem_tips(
             pend[slot] = torch.where(has[:, None], rows[None], pend[slot])
             qt[start_slot] = t + gap / rate
             ovf += (~has).to(torch.int32).sum()
+            if ring is not None:
+                # an iteration dropped for want of a pending slot never publishes
+                obs_trace.append_edges(ring, head.time, obs_trace.KIND_PUBLISH,
+                                       self_edge(node) & has, h[node])
         done += 1
 
     union = replica_lib.merge_all(dags)
@@ -536,4 +609,6 @@ def simulate_insystem_tips(
         published=seqc - 1,
         overflow=int(ovf) + dropped,
         union=union,
+        trace=obs_trace.drain(ring) if ring is not None else None,
+        trace_dropped=int(ring.dropped) if ring is not None else 0,
     )

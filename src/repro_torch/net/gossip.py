@@ -50,12 +50,19 @@ unlimited capacity the whole trajectory is bitwise the bankless one. With
 prices a chunk at its encoded size, ``chunk_bytes * wire_ratio()``; the
 identity codec keeps the raw granule.
 
-Both engines are ported, with or without bank gossip and its codec;
-telemetry, faults, serving and a mesh are not, and ``GossipNetwork`` raises
+Telemetry (``obs_cfg=repro_torch.obs.ObsConfig(...)``): every executed
+round, on either engine and in ``converge``, runs ``obs.observe_round`` on
+the pre- and post-round replicas (the round bodies are functional, so the
+loop's own pre-round state is the copy it reads); ``obs_report`` drains the
+collectors. It reads only: the obs-on trajectory is bitwise the obs-off one.
+
+Both engines are ported, with or without bank gossip, its codec and
+telemetry; faults, serving and a mesh are not, and ``GossipNetwork`` raises
 ``NotImplementedError`` naming the ROADMAP item for each of those options.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
@@ -63,6 +70,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs as obs_lib
 from repro_torch.core import dag as dag_lib
 from repro_torch.core.dag import DagState
 from repro_torch.kernels import chunk_transfer as chunk_kernel
@@ -72,6 +80,9 @@ from repro_torch.net import bank as bank_lib
 from repro_torch.net import replica as replica_lib
 from repro_torch.net.bank import BankGossipConfig, BankState
 from repro_torch.net.topology import Topology, neighbor_table, partition_matrix
+from repro_torch.obs import hist as hist_lib
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 
 EdgeDraw = Callable[[int], torch.Tensor]
 
@@ -253,6 +264,12 @@ def stride_matrix(top: Topology, sync_period: float, use_strides: bool = True) -
     return np.minimum(stride, 2.0 ** 30).astype(np.int32)
 
 
+def tick_time(tick: int, period: float) -> float:
+    """A tick's sample instant, the reference's f32 ``(tick + 1.0) * period``
+    (``period`` is ``max(sync_period, 0)`` as an f32)."""
+    return float((np.float32(tick) + np.float32(1.0)) * np.float32(period))
+
+
 def _unported(**options) -> None:
     for name, (value, item) in options.items():
         if value is not None:
@@ -280,8 +297,8 @@ class GossipNetwork:
         serve_cfg=None,
         edge_draw: Optional[EdgeDraw] = None,
     ):
-        _unported(mesh=(mesh, "ROADMAP A.12"), obs_cfg=(obs_cfg, "ROADMAP A.9"),
-                  faults_cfg=(faults_cfg, "ROADMAP A.10"), serve_cfg=(serve_cfg, "ROADMAP A.11"))
+        _unported(mesh=(mesh, "ROADMAP A.12"), faults_cfg=(faults_cfg, "ROADMAP A.10"),
+                  serve_cfg=(serve_cfg, "ROADMAP A.11"))
         if cfg.engine not in ("ticks", "events"):
             raise ValueError(f"unknown gossip engine: {cfg.engine!r}")
         if cfg.impl not in ("fused", "scan", "lax"):
@@ -321,6 +338,9 @@ class GossipNetwork:
         self._next_tick_t = period if period > 0 else 0.0
         if cfg.engine == "events":
             self._init_events(top, bank_cfg, partition)
+        self.obs_cfg = obs_cfg
+        if obs_cfg is not None:
+            self._init_obs(obs_cfg, n)
 
     def _init_bank(self, bank, top: Topology, cfg: GossipConfig, bank_cfg: BankGossipConfig):
         c = bank_cfg.chunks_per_slot
@@ -371,6 +391,17 @@ class GossipNetwork:
             self._last_srv = torch.zeros((n, n), dtype=torch.float32, device=self.device)
             self._bw_bytes = torch.from_numpy(
                 np.asarray(top.bandwidth / 8.0, np.float32)).to(self.device)
+
+    def _init_obs(self, obs_cfg, n: int) -> None:
+        """The telemetry state on the device, and the host span buffer."""
+        self._metrics = obs_lib.init_metrics(n, obs_cfg, self.device)
+        self._ring = obs_lib.init_trace(obs_cfg.trace_capacity, self.device)
+        self._obs_period = float(np.float32(max(self.cfg.sync_period, 0.0)))
+        self._host_events = []        # (t, kind, src, dst, arg) spans
+        self._part_logged = [False, False]
+        if obs_cfg.hist is not None:
+            # the propagation latch starts from the actual initial state
+            self._metrics.hist = hist_lib.init_hist(obs_cfg.hist, self.replicas.dags)
 
     # --- replica access ----------------------------------------------------
 
@@ -451,6 +482,95 @@ class GossipNetwork:
         Pass a precomputed ``union()`` to avoid re-folding the replicas."""
         return replica_lib.missing_vs_union(self.replicas.dags, union).cpu().numpy()
 
+    # --- telemetry (only when constructed with obs_cfg) ---------------------
+
+    def _observe(self, t: float, old: DagState, new: DagState, edges: torch.Tensor,
+                 old_b: Optional[BankState], new_b: Optional[BankState]) -> None:
+        """The collector step after one executed round (``obs.observe_round``)."""
+        bank = {} if new_b is None else dict(
+            bytes_delta=new_b.sent - old_b.sent, bstate=new_b, digest=self._digest,
+            old_have=old_b.have)
+        self._metrics, self._ring = obs_lib.observe_round(
+            self.obs_cfg, self._metrics, self._ring, t, old, new, live_edges=edges, **bank)
+
+    def trace_host(self, t, kind, src, dst, arg=0.0) -> None:
+        """Buffer a host-side trace span (PUBLISH/COMMIT/PARTITION: the FL
+        loop knows them, so recording them costs no device work); merged
+        with the device ring at drain. No-op without telemetry."""
+        if self.obs_cfg is not None and self.obs_cfg.trace:
+            self._host_events.append((float(t), int(kind), int(src), int(dst), float(arg)))
+
+    def trace_device(self, t, kind, src, dst, arg=0.0) -> None:
+        """Record a host-initiated span through the device trace ring (the
+        ``ObsConfig.device_spans`` path): the record ``trace_host`` buffers,
+        appended with ``trace.append_edges`` under a one-hot mask, so it
+        shares the ring's capacity and drops; values take the ring's f32.
+        No-op without telemetry or trace."""
+        if self.obs_cfg is None or not self.obs_cfg.trace:
+            return
+        n = self.topology.num_nodes
+        mask = torch.zeros((n, n), dtype=torch.bool, device=self.device)
+        if 0 <= dst < n and 0 <= src < n:
+            mask[dst, src] = True
+        self._ring = self._dispatch("trace_device", obs_trace.append_edges, self._ring,
+                                    float(np.float32(t)), kind, mask, float(np.float32(arg)))
+
+    def trace_span(self, t, kind, src, dst, arg=0.0) -> None:
+        """PUBLISH/COMMIT entry point for the FL loop: the device ring
+        under ``ObsConfig.device_spans``, the host buffer otherwise."""
+        if self.obs_cfg is not None and self.obs_cfg.device_spans:
+            self.trace_device(t, kind, src, dst, arg)
+        else:
+            self.trace_host(t, kind, src, dst, arg)
+
+    def _note_partition(self, t: float) -> None:
+        """Record the partition's begin and heal once each, the first time
+        the clock reaches them."""
+        if self.obs_cfg is None or self.partition is None:
+            return
+        p = self.partition
+        if not self._part_logged[0] and t >= p.t_start:
+            self._part_logged[0] = True
+            self.trace_host(p.t_start, obs_trace.KIND_PARTITION, -1, -1, 1.0)
+        if not self._part_logged[1] and t >= p.t_end:
+            self._part_logged[1] = True
+            self.trace_host(p.t_end, obs_trace.KIND_PARTITION, -1, -1, 0.0)
+
+    def obs_report(self):
+        """Drain the collectors into a host-side ``ObsReport``: the series
+        cut to the samples taken, the trace ring merged with the host spans,
+        dispatch counts and final-state scalars. ``None`` without telemetry.
+        The only place a run's telemetry is read back."""
+        if self.obs_cfg is None:
+            return None
+        m = self._metrics
+        taken = min(m.cursor, m.t.shape[0])
+        series = {}
+        for name in obs_metrics.SERIES:
+            x = getattr(m, name)[:taken].cpu().numpy()
+            series[name] = x.astype(np.float64 if x.dtype == np.float32 else np.int64)
+        final = {
+            "bytes_sent": self.bytes_sent(),
+            "chunk_lag": float(self.missing_chunks().max()),
+            "staleness": float(self.missing_rows().max()),
+        }
+        hist = (hist_lib.report_dict(m.hist, self.obs_cfg.hist)
+                if self.obs_cfg.hist is not None else None)
+        return obs_lib.ObsReport(
+            num_nodes=self.topology.num_nodes,
+            engine=self.cfg.engine,
+            rounds=m.rounds,
+            series=series,
+            rows_merged=m.rows_merged.cpu().numpy().astype(np.int64),
+            link_bytes=m.link_bytes.cpu().numpy().astype(np.float64),
+            samples_dropped=m.dropped,
+            trace=obs_trace.drain(self._ring, self._host_events),
+            trace_dropped=int(self._ring.dropped),
+            dispatch_counts=dict(self.dispatch_counts),
+            final=final,
+            hist=hist,
+        )
+
     # --- the clock ---------------------------------------------------------
 
     def _mask_at(self, t: float) -> torch.Tensor:
@@ -460,10 +580,15 @@ class GossipNetwork:
 
     def _dispatch(self, label: str, fn, *args):
         """Issue one state-advancing entry point through the counting funnel:
-        ``device_calls`` counts them all, ``dispatch_counts`` by label."""
+        ``device_calls`` counts them all, ``dispatch_counts`` by label. With
+        telemetry on (``ObsConfig.annotate``), the call runs inside
+        ``torch.profiler.record_function`` so profiles name the phase."""
         self.device_calls += 1
         self.dispatch_counts[label] = self.dispatch_counts.get(label, 0) + 1
-        return fn(*args)
+        annotate = self.obs_cfg is not None and self.obs_cfg.annotate
+        with (torch.profiler.record_function(f"repro_torch.net.{label}") if annotate
+              else contextlib.nullcontext()):
+            return fn(*args)
 
     def _next_uniform(self) -> torch.Tensor:
         """The next round's (N, N) edge draw."""
@@ -479,10 +604,15 @@ class GossipNetwork:
         self.rounds_run += 1
         edges = _sample_edges(uniform, tick, part_mask, self._adj, self._drop, self._stride)
         if bstate is None:
-            return _apply_round(dags, edges, self._nbr_idx, self._nbr_valid, self.cfg.impl), None
-        return _bank_tick_single(dags, bstate, self._digest, edges, self._nbr_idx,
-                                 self._nbr_valid, self._cap_bytes, self._wire_chunk_bytes,
-                                 self.cfg.impl)
+            new, newb = _apply_round(dags, edges, self._nbr_idx, self._nbr_valid,
+                                     self.cfg.impl), None
+        else:
+            new, newb = _bank_tick_single(dags, bstate, self._digest, edges, self._nbr_idx,
+                                          self._nbr_valid, self._cap_bytes,
+                                          self._wire_chunk_bytes, self.cfg.impl)
+        if self.obs_cfg is not None:
+            self._observe(tick_time(tick, self._obs_period), dags, new, edges, bstate, newb)
+        return new, newb
 
     def _advance_window(self, ticks, part_active) -> None:
         dags, bstate = self.replicas.dags, self.replicas.bank_state
@@ -514,17 +644,18 @@ class GossipNetwork:
         window = (horizon, cfg.max_events_per_advance, cfg.max_ticks_per_advance,
                   self._part_mask, self._part_t0, self._part_t1, self._drop,
                   self._nbr_idx, self._nbr_valid)
+        observe = self._observe if self.obs_cfg is not None else None
         if self.bank_cfg is not None:
             dags, bstate, self._last_srv, qt, qv, done = self._dispatch(
                 "advance_events_bank", events_lib.advance_events_bank,
                 self.replicas.dags, self.replicas.bank_state, self._last_srv, self._digest,
                 self._equeue, self._eislot, self._next_uniform, *window, self._bw_bytes,
-                self._wire_chunk_bytes, cfg.impl)
+                self._wire_chunk_bytes, cfg.impl, observe)
             self.replicas = self.replicas._replace(dags=dags, bank_state=bstate)
         else:
             dags, qt, qv, done = self._dispatch(
                 "advance_events", events_lib.advance_events, self.replicas.dags,
-                self._equeue, self._eislot, self._next_uniform, *window, cfg.impl)
+                self._equeue, self._eislot, self._next_uniform, *window, cfg.impl, observe)
             self.replicas = self.replicas._replace(dags=dags)
         self._equeue = self._equeue._replace(time=qt, valid=qv)
         self.tick += done
@@ -536,6 +667,7 @@ class GossipNetwork:
         """Run every sync tick (or, on the events engine, every event)
         scheduled at or before simulation time ``t`` as one batched entry
         point."""
+        self._note_partition(t)
         if self.cfg.sync_period <= 0:
             self.converge(at_time=t)
             return
@@ -594,6 +726,7 @@ class GossipNetwork:
         count, one ``chunk_dedup`` launch, once rows are synced). Keeping
         the loop on the device (CUDA graphs) is later work.
         """
+        self._note_partition(at_time)
         stride = min(self._max_stride, 64)
         if self.bank_cfg is None:
             return self._dispatch("converge", self._converge_loop, self._mask_at(at_time),

@@ -696,12 +696,16 @@ def test_insystem_per_node_h_and_counters():
 
 
 def test_insystem_trace_empty_tail_mean_is_nan_and_telemetry_raises():
+    """An empty trace's tail mean is NaN, and its export raises without the
+    union ledger it reads the node count from; with one, a short traced run
+    exports (its parity with the reference is in ``tests/test_torch_obs.py``)."""
     tr = t_events.InSystemTrace(times=np.zeros(0), tips=np.zeros(0), staleness=np.zeros(0),
                                 published=0, overflow=0, union=None)
     assert np.isnan(tr.tail_mean())
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
+    with pytest.raises(ValueError, match="union"):
         tr.to_report()
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        t_events.simulate_insystem_tips(t_topo.full(3), h=1.0, arrival_rate=1.0, k=2,
-                                        tau_max=20.0, horizon=5.0, record_trace=True,
-                                        device="cpu")
+    run = t_events.simulate_insystem_tips(t_topo.full(3), h=1.0, arrival_rate=1.0, k=2,
+                                          tau_max=20.0, horizon=5.0, record_trace=True,
+                                          device="cpu")
+    rep = run.to_report()
+    assert rep.num_nodes == 3 and rep.samples == len(run.times) and rep.trace_dropped == 0

@@ -40,6 +40,7 @@ from repro_torch.net import gossip as t_gossip
 from repro_torch.net.bank import BankGossipConfig
 from repro_torch.net import replica as t_replica
 from repro_torch.net import topology as t_topo
+from repro_torch.obs import HistConfig, ObsConfig
 
 FIELDS = t_dag.DagState._fields
 # the reference's functions, jitted: one compile per shape instead of one per primitive
@@ -500,8 +501,10 @@ def test_ideal_wire_equals_run_dagfl(impl):
     dict(mesh=object()), dict(bank_gossip=BankGossipConfig(codec=DeltaCodec("int8")),
                               engine="events", serve=object()),
     dict(bank_gossip=BankGossipConfig(codec=DeltaCodec("int4")), faults=object()),
-    dict(bank_gossip=BankGossipConfig(), faults=object()), dict(engine="events", obs=object()),
-    dict(obs=object()), dict(faults=object()), dict(serve=object()),
+    dict(bank_gossip=BankGossipConfig(), faults=object()),
+    dict(engine="events", obs=ObsConfig(), faults=object()),
+    dict(obs=ObsConfig(hist=HistConfig()), serve=object()), dict(faults=object()),
+    dict(serve=object()),
     dict(gossip=t_gossip.GossipConfig(engine="events"), faults=object()),
 ])
 def test_unported_options_raise(option):
@@ -518,9 +521,11 @@ def test_unported_network_parts_raise():
                dict(bank_cfg=BankGossipConfig(codec=DeltaCodec("int8")),
                     cfg=t_gossip.GossipConfig(engine="events"), serve_cfg=object()),
                dict(bank_cfg=BankGossipConfig(codec=DeltaCodec("topk")), faults_cfg=object()),
-               dict(bank_cfg=BankGossipConfig(), faults_cfg=object()), dict(obs_cfg=object()),
+               dict(bank_cfg=BankGossipConfig(), faults_cfg=object()),
+               dict(obs_cfg=ObsConfig(), mesh=object()),
                dict(faults_cfg=object()), dict(serve_cfg=object()),
-               dict(cfg=t_gossip.GossipConfig(engine="events"), obs_cfg=object()),
+               dict(cfg=t_gossip.GossipConfig(engine="events"), obs_cfg=ObsConfig(),
+                    serve_cfg=object()),
                dict(cfg=t_gossip.GossipConfig(engine="events"), faults_cfg=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP A"):
             t_gossip.GossipNetwork(dag, None, top, **kw)

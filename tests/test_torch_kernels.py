@@ -34,6 +34,12 @@ must equal the plain versions bitwise (``test_quant_kernel_on_card``,
 ``test_topk_kernel_on_card``, ``test_encode_on_card_equals_the_cpu``); the
 plain versions are held against the reference in
 ``tests/test_torch_codec.py``.
+
+The histogram bincount, ``kernels/hist_bincount.py``: integer sums, so the
+kernel must equal the plain version bitwise (``test_hist_bincount_kernel_on_card``),
+out-of-range and negative indices dropped; the plain version is held against
+the reference's oracle and its Pallas kernel in ``tests/test_torch_hist.py``
+and here (``test_hist_bincount_plain_matches_ref_and_pallas``).
 """
 import numpy as np
 import pytest
@@ -47,6 +53,7 @@ from repro_torch.kernels import cuda_build
 from repro_torch.kernels import event_pop as t_pop
 from repro_torch.kernels import fedavg as t_fedavg
 from repro_torch.kernels import gossip_merge as t_gm
+from repro_torch.kernels import hist_bincount as t_hb
 
 
 @pytest.fixture(scope="module")
@@ -516,3 +523,69 @@ def test_event_pop_kernel_on_card(cuda, q, times):
         torch.cuda.synchronize()
         assert cuda_build.LAUNCHES["event_pop"] == before + 1
         assert torch.equal(got.cpu(), t_pop.event_head_plain(*(x.cpu() for x in args)))
+
+
+# ---------------------------------------------------------------------------
+# the histogram bincount
+# ---------------------------------------------------------------------------
+
+
+def bincount_batch(rng, m, num_bins, device="cpu"):
+    """(idx, w) i32: indices mostly in range, some past the end and negative,
+    weights with zeros (the masked samples of a round) and a few large ones."""
+    idx = rng.integers(-3, num_bins + 3, m).astype(np.int32)
+    idx[rng.random(m) < 0.05] = np.iinfo(np.int32).min
+    w = rng.integers(0, 3, m).astype(np.int32)
+    w[rng.random(m) < 0.01] = 1_000_000
+    return torch.from_numpy(idx).to(device), torch.from_numpy(w).to(device)
+
+
+@pytest.mark.parametrize("m,num_bins", [(0, 65), (1, 65), (700, 65), (4_097, 8), (51_200, 65)])
+def test_hist_bincount_plain_matches_ref_and_pallas(jax_ref, m, num_bins):
+    jax, _, ref, _ = jax_ref
+    from repro.kernels.hist_bincount import hist_bincount_pallas
+
+    idx, w = bincount_batch(np.random.default_rng(m), m, num_bins)
+    got = t_hb.hist_bincount_plain(idx, w, num_bins)
+    want = np.asarray(ref.hist_bincount_ref(jax.numpy.asarray(idx.numpy()),
+                                            jax.numpy.asarray(w.numpy()), num_bins))
+    assert got.dtype == torch.int32 and got.shape == (num_bins,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if 0 < m <= 4_097:
+        pallas = hist_bincount_pallas(jax.numpy.asarray(idx.numpy()),
+                                      jax.numpy.asarray(w.numpy()), num_bins, block_m=512,
+                                      interpret=True)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(pallas))
+
+
+def test_hist_bincount_wrapper_launches_nothing_off_the_card():
+    idx, w = bincount_batch(np.random.default_rng(1), 300, 65)
+    before = cuda_build.LAUNCHES["hist_bincount"]
+    got = t_hb.hist_bincount(idx, w, 65)
+    assert cuda_build.LAUNCHES["hist_bincount"] == before
+    assert torch.equal(got, t_hb.hist_bincount_plain(idx, w, 65))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        t_hb.hist_bincount(idx.to("meta"), w.to("meta"), 65)
+    source = cuda_build.CSRC / "hist_bincount.cu"
+    cmd = cuda_build.build_command("nvcc", source, "x.so")
+    assert source.exists() and "arch=compute_90a,code=sm_90a" in cmd and cmd[-1] == str(source)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,num_bins", [(1, 65), (512, 65), (51_200, 65), (300_001, 65),
+                                        (9_999, 12_288), (4_096, 1)])
+def test_hist_bincount_kernel_on_card(cuda, m, num_bins):
+    rng = np.random.default_rng(m + num_bins)
+    for _ in range(3):
+        idx, w = bincount_batch(rng, m, num_bins, cuda)
+        before = cuda_build.LAUNCHES["hist_bincount"]
+        got = t_hb.hist_bincount(idx, w, num_bins)
+        torch.cuda.synchronize()
+        assert cuda_build.LAUNCHES["hist_bincount"] == before + 1
+        assert torch.equal(got.cpu(), t_hb.hist_bincount_plain(idx.cpu(), w.cpu(), num_bins))
+    empty = torch.zeros((0,), dtype=torch.int32, device=cuda)
+    before = cuda_build.LAUNCHES["hist_bincount"]
+    assert int(t_hb.hist_bincount(empty, empty, 9).abs().sum()) == 0
+    assert cuda_build.LAUNCHES["hist_bincount"] == before
+    with pytest.raises(ValueError, match="num_bins"):
+        t_hb.hist_bincount(idx, w, t_hb.MAX_BINS + 1)
