@@ -33,7 +33,14 @@ builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (into
    Table-I bank, int4 over 1 Mbit/s and the events engine's path (c), each
    run with telemetry off and on (bitwise the same run; the histogram
    bincount launched per round), the ticks path profiled with telemetry
-   on, and the Table-I tip simulation with ``record_trace=True``;
+   on, and the Table-I tip simulation with ``record_trace=True``; and (2h)
+   fault injection (``faults=FaultConfig(...)``), each path beside its
+   unfaulted run: an all-honest config on the gossip main path and the
+   Table-I bank, ticks and events (bitwise the unfaulted runs), 10 spoofers
+   against digest verification on the Table-I bank and on the events
+   engine's path (c) with int4, a crash window with selective forwarders
+   and sybils, and the model-space screen (``parameter_outlier_scores``,
+   the model-distance kernel) on five candidates of a poisoned run's bank;
 3. runs a small ``run_dagfl``, a small ``run_dagfl_gossip`` (a lossy ring
    with a partition), a small banked one (the same ring, starved) and the
    same with the int8 codec on the card and on the CPU with the same draws
@@ -43,12 +50,15 @@ builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (into
    (3g) small runs with telemetry on (the ticks ring, the starved banked
    ticks ring raw and with int8, the banked events ring, a traced tip
    simulation): histogram counts and trace records of the card equal the
-   CPU's bitwise.
+   CPU's bitwise; (3h) small faulted runs with telemetry on (spoofers on a
+   starved banked ring, ticks and events with int4; crash, selective and
+   sybil roles bankless): ledgers, fault reports and telemetry bitwise.
 
-Phase 1 of the merge-winner, chunk-dedup, codec, event-queue and histogram
-kernels runs last, after phase 3 (1f also holds ``bin_index`` on the card
-against the CPU at every f32 edge and the sync-period multiples); the
-digest check (bank table against one payload, bitwise) runs before phase 2c.
+Phase 1 of the merge-winner, chunk-dedup, codec, event-queue, histogram
+and model-distance kernels runs last, after phase 3 (1f also holds
+``bin_index`` on the card against the CPU at every f32 edge and the
+sync-period multiples); the digest check (bank table against one payload,
+bitwise) runs before phase 2c.
 
 Prints one JSON line of kernel numbers, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, on
@@ -106,6 +116,11 @@ TIP_SIM_SEEDS = (0, 1, 2, 3, 4, 5)
 SPIN_CYCLES = 40_000_000    # about 20 ms at the H100's 1.98 GHz boost clock
 HIST_BINS = 65              # HistConfig(): 64 log-spaced bins and the overflow bin
 OBS_ITERATIONS = 100        # phase 2g's depth: each path runs twice (telemetry off, on)
+FAULT_ITERATIONS = 100      # phase 2h's depth: each faulted path beside its unfaulted run
+# the model distance, kernel vs plain: relative to each entry's sum of
+# absolute terms sq_i + sq_j + 2 |x_i . x_j| (sums in another order; the
+# diagonal cancels to near 0)
+DIST_TOL = 1e-5
 
 
 class SmokeFailure(Exception):
@@ -302,12 +317,12 @@ def phase_gossip_kernel(gm):
     ]
 
 
-def paper_setup(num_nodes, image_size, seed=0):
+def paper_setup(num_nodes, image_size, seed=0, **population):
     from repro_torch.data.synthetic import MnistLike
     from repro_torch.fl.nodes import build_population
 
     gen = MnistLike(image_size=image_size, seed=seed)
-    nodes = build_population(gen, num_nodes, seed=seed)
+    nodes = build_population(gen, num_nodes, seed=seed, **population)
     gval = gen.balanced(np.random.default_rng(seed + 31), 256)
     return nodes, {"x": gval.x, "y": gval.y}
 
@@ -1731,6 +1746,342 @@ def phase_small_obs_agreement():
     return out
 
 
+# ---------------------------------------------------------------------------
+# fault injection: the model distance (1h), faulted paths at full width (2h),
+# card vs CPU (3h)
+# ---------------------------------------------------------------------------
+
+
+def distance_scale(x):
+    """(k, k) f64 sq_i + sq_j + 2 |x_i . x_j|: the sum of the absolute terms
+    of each distance, what its rounding error scales with."""
+    x = x.double()
+    sq = (x * x).sum(1)
+    return sq[:, None] + sq[None, :] + 2.0 * (x @ x.T).abs()
+
+
+def distance_case(md, name, k, n, gen, zero_row=False, reps=40):
+    """One shape of the model-distance kernel: within DIST_TOL of the sum of
+    the absolute terms of its plain version on the same card tensors, the
+    same bits from call to call, then times: the kernel, the plain version,
+    ``torch.cdist`` (the library yardstick; it gives the root of the
+    distance, computed through a matrix product) and the byte bound.
+    Each timed call reads other models (copies cycled past the 50 MB L2), as
+    a screen of freshly gathered candidates would."""
+    nbytes = 4 * k * n + 4 * k * k          # the models read once, the distances written once
+    copies = min(16, max(1, -(-120_000_000 // nbytes)))
+    args_list = []
+    for i in range(copies):
+        x = torch.randn((k, n), generator=gen, device="cuda")
+        x *= torch.rand((k, 1), generator=gen, device="cuda") * 10
+        if zero_row and i == 0:
+            x[k // 2] = 0.0
+        args_list.append((x,))
+    max_abs_err = 0.0
+    for (x,) in args_list[:3]:
+        got, again = md.model_distance(x), md.model_distance(x)
+        want = md.model_distance_plain(x)
+        torch.cuda.synchronize()
+        check(got.shape == (k, k) and got.dtype == torch.float32, f"distance {name}: {got.shape}")
+        check(torch.equal(got, again), f"distance {name}: two calls differ")
+        err = (got.double() - want.double()).abs()
+        max_abs_err = max(max_abs_err, float(err.max()))
+        check(bool((err <= DIST_TOL * distance_scale(x)).all()),
+              f"distance {name}: kernel off plain by {float(err.max())}")
+    rounds = max(1, reps // copies)
+    ms = device_ms(md.model_distance, args_list * rounds)
+    plain_ms = device_ms(md.model_distance_plain, args_list * rounds)
+    library_ms = device_ms(lambda x: torch.cdist(x, x, compute_mode="use_mm_for_euclid_dist"),
+                           args_list * rounds)
+    call = call_ms(md.model_distance, args_list * rounds)
+    flops = k * (k + 1) * n             # the k(k+1)/2 dot products, an fma each per column
+    bytes_s, flops_s = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+    return {"case": name, "k": k, "N": n, "zero_row": zero_row, "max_abs_err": max_abs_err,
+            "ms": ms, "plain_ms": plain_ms, "call_ms": call, "library_ms": library_ms,
+            "library": "torch.cdist(x, x, compute_mode='use_mm_for_euclid_dist') (the root)",
+            "bound_ms": 1e3 * max(bytes_s, flops_s),
+            "bound_by": "bytes" if bytes_s >= flops_s else "operations",
+            "bound_bytes": nbytes, "timed_copies": copies}
+
+
+def phase_distance_kernel(md):
+    """Phase 1h: the model-distance kernel against its plain version at the
+    screen's shapes (alpha = 5 candidates of the paper's CNN, and 16) and at
+    small odd ones (k = 1, N not a multiple of a chunk, a row of zeros)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    cases = [distance_case(md, "main_k5", 5, MAIN_P, gen),
+             distance_case(md, "main_k16", 16, MAIN_P, gen),
+             distance_case(md, "k1", 1, 4_097, gen, reps=20),
+             distance_case(md, "k7_n33_zero_row", 7, 33, gen, zero_row=True, reps=20),
+             distance_case(md, "k32_ragged", 32, 100_003, gen, zero_row=True, reps=20)]
+    with_zero = torch.zeros((3, 1_000), device="cuda")
+    check(int(md.model_distance(with_zero).abs().sum()) == 0, "distance of zeros is not 0")
+    try:
+        md.model_distance(torch.zeros((md.MAX_K + 1, 8), device="cuda"))
+        check(False, "k past MAX_K was not refused")
+    except ValueError:
+        pass
+    return cases
+
+
+def fault_runs():
+    """Phase 2h's fault configurations at full width (100 nodes)."""
+    from repro_torch.net import faults
+
+    n = MAIN_NODES
+    spoof = tuple(faults.ROLE_SPOOF if i % 10 == 3 else faults.ROLE_HONEST for i in range(n))
+    mixed = [faults.ROLE_HONEST] * n
+    for i in range(5, n, 10):
+        mixed[i] = faults.ROLE_SELECTIVE                  # 10 selective forwarders
+    for i in range(7, n // 2, 10):
+        mixed[i] = faults.ROLE_SYBIL                      # 5 sybils
+    mixed[1] = mixed[2] = faults.ROLE_CRASH               # dark for [20, 60) s
+    return {
+        "honest": faults.FaultConfig(roles=(faults.ROLE_HONEST,) * n),
+        "spoof": faults.FaultConfig(roles=spoof, spoof_rate=1.0, verify_digests=True,
+                                    quarantine_after=3),
+        "mixed": faults.FaultConfig(roles=tuple(mixed), crash_start=20.0, crash_end=60.0,
+                                    forward_prob=0.5),
+    }
+
+
+def check_fault_run(what, res, cfg):
+    """The defense's claims on a SPOOF run: no tainted chunk in any gated
+    view, rejections charged to spoofers only, every quarantined link's
+    sender a spoofer, a clean sender's credit exactly 1.0 and a charged
+    one's below it. (A spoofer nobody fetched from is never charged.)"""
+    rep = res.extras["fault_report"]
+    roles = np.asarray(cfg.roles)
+    spoofers, honest = roles == 4, roles != 4
+    check(int(rep["tainted_in_views"].sum()) == 0, f"{what}: a tainted chunk is in a view")
+    check(rep["rejected_total"] > 0, f"{what}: nothing was rejected")
+    check(int(rep["rejects"][:, honest].sum()) == 0, f"{what}: an honest sender was charged")
+    q = rep["rejects"] >= cfg.quarantine_after
+    check(not q[:, honest].any(), f"{what}: quarantine cut {int(q[:, honest].sum())} honest links")
+    credit = rep["rejection_credit"]
+    charged = rep["rejects"].sum(axis=0) > 0
+    check(bool((credit[honest] == 1.0).all()) and bool((credit[charged] < 1.0).all()),
+          f"{what}: credit {credit}")
+    return {"rejected": rep["rejected_total"], "quarantined_links": rep["quarantined_links"],
+            "quarantined_links_from_spoofers": int(q[:, spoofers].sum()),
+            "spoofers_charged": int(charged.sum()), "spoofers": int(spoofers.sum()),
+            "credit_spoofers_mean": float(credit[spoofers].mean()),
+            "credit_charged_mean": float(credit[charged].mean()),
+            "credit_others_mean": float(credit[honest].mean()),
+            "tainted_in_views": int(rep["tainted_in_views"].sum())}
+
+
+def fault_summary(res, wall_s, launches):
+    ex = res.extras
+    out = {"ms_per_iteration": 1e3 * wall_s / FAULT_ITERATIONS, "run_s": wall_s,
+           "sync_rounds": ex["sync_rounds"], "events_processed": ex["events_processed"],
+           "launches": launches, "final_accuracy": float(res.accs[-1]),
+           "stage_ms": ex["stage_ms"]}
+    if "bank_bytes_sent" in ex:
+        lag = ex["bank_lag_curve"]
+        out.update(bank_bytes_sent=ex["bank_bytes_sent"], bank_lag_max=float(lag[:, 2].max()),
+                   bank_lag_final=float(lag[-1, 2]))
+    return out
+
+
+def phase_fault_main_path(cuda_build):
+    """Phase 2h: faulted paths at full width (``CNNTask()``, 100 nodes,
+    capacity 512, FAULT_ITERATIONS iterations), each beside its unfaulted run
+    in this call:
+
+    (a) an all-honest ``FaultConfig`` on the gossip main path and on the
+        Table-I bank, ticks and events: each bitwise the unfaulted run;
+    (b) 10 SPOOF nodes (verification on, quarantine after 3) on the Table-I
+        bank (ticks) and on events path (c) with int4 (``check_fault_run``);
+    (c) bankless, ticks: a crash window, 10 SELECTIVE (p = 0.5), 5 SYBIL;
+    (d) ``parameter_outlier_scores`` on alpha = 5 candidates read from the
+        bank of a run with 10 poisoning nodes, card against the CPU."""
+    from repro_torch.core import anomaly
+
+    cfgs = fault_runs()
+    table1 = bank_runs()["table1"]
+    events_table1 = dict(table1, engine="events")
+    events_c_int4 = dict(events_constrained_runs()["int4"], engine="events")
+    out = {}
+    plain = {}
+    for name, options in (("gossip_ticks", {}), ("gossip_events", dict(engine="events")),
+                          ("table1_ticks", table1), ("table1_events", events_table1)):
+        off, off_s, off_launches = full_width_run(cuda_build, FAULT_ITERATIONS, **options)
+        on, on_s, on_launches = full_width_run(cuda_build, FAULT_ITERATIONS,
+                                               faults=cfgs["honest"], **options)
+        what = f"faults honest {name}"
+        if "bank_gossip" in options:
+            check_same_bank_run(what, on, off, 0.0)
+        else:
+            check_same_run(what, on, off)
+        check_same_floats(what, on, off)
+        # the same launches, but the fault report's attack-success count
+        # (one gated view, one dedup, per node) after a banked run
+        expected = dict(off_launches)
+        if "bank_gossip" in options:
+            expected["chunk_dedup"] = expected.get("chunk_dedup", 0) + MAIN_NODES
+        check(on_launches == expected, f"{what}: launches {on_launches} vs {expected}")
+        check(on.extras["fault_report"].get("rejected_total", 0) == 0, f"{what}: rejections")
+        out[f"a_honest_{name}"] = {"unfaulted": fault_summary(off, off_s, off_launches),
+                                   "honest": fault_summary(on, on_s, on_launches)}
+        if name in ("gossip_ticks", "table1_ticks"):
+            plain[name] = out[f"a_honest_{name}"]["unfaulted"]
+        del on, off
+    for name, options, base in (("b_spoof_table1_ticks", table1, plain["table1_ticks"]),
+                                ("b_spoof_events_c_int4", events_c_int4, None)):
+        if base is None:
+            off, off_s, off_launches = full_width_run(cuda_build, FAULT_ITERATIONS, **options)
+            base = fault_summary(off, off_s, off_launches)
+            del off
+        res, wall_s, launches = full_width_run(cuda_build, FAULT_ITERATIONS,
+                                               faults=cfgs["spoof"], **options)
+        out[name] = {"unfaulted": base, "faulted": fault_summary(res, wall_s, launches),
+                     "defense": check_fault_run(name, res, cfgs["spoof"])}
+        del res
+    res, wall_s, launches = full_width_run(cuda_build, FAULT_ITERATIONS, faults=cfgs["mixed"])
+    union = res.extras["dag"]
+    sybil = np.asarray(cfgs["mixed"].roles) == 5
+    pub = union.publisher.cpu().numpy()
+    ac = union.approval_count.cpu().numpy()
+    forged = sybil[np.clip(pub, 0, MAIN_NODES - 1)] & (pub >= 0) & (pub < MAIN_NODES)
+    check(not forged.any() or int(ac[forged].max()) >= MAIN_NODES,
+          "faults mixed: a sybil row does not carry the forged approver set")
+    out["c_crash_selective_sybil"] = {
+        "unfaulted": plain["gossip_ticks"], "faulted": fault_summary(res, wall_s, launches),
+        "approval_count_max": int(ac.max()),
+        "approval_count_max_honest_rows": int(ac[(pub >= 0) & ~forged].max()),
+        "sybil_rows": int(forged.sum())}
+    del res
+
+    # (d) the model-space screen on the bank of a poisoning population
+    from repro_torch.configs.dagfl_paper_tasks import CNN_TASK
+    from repro_torch.fl.systems import SimConfig, run_dagfl_gossip
+    from repro_torch.fl.tasks import CNNTask
+
+    dcfg = CNN_TASK.dagfl
+    nodes, gval = paper_setup(dcfg.num_nodes, 28, abnormal="poisoning",
+                              num_abnormal=dcfg.num_nodes // 10)
+    sim = SimConfig(iterations=FAULT_ITERATIONS, eval_every=EVAL_EVERY, minibatch=dcfg.minibatch)
+    res = run_dagfl_gossip(CNNTask(), nodes, dcfg, sim, gval, device="cuda")
+    union, bank = res.extras["dag"], res.extras["replicas"].bank
+    poisoned = np.array([nd.behavior == "poisoning" for nd in nodes])
+    pub = union.publisher.cpu().numpy()
+    slot = union.model_slot.cpu().numpy()
+    seq = np.argsort(-union.publish_time.cpu().numpy(), kind="stable")
+    rows = [r for r in seq if 0 <= pub[r] < MAIN_NODES and slot[r] >= 0]
+    # alpha = 5 candidates: the latest two poisoning publications, the latest normal ones
+    bad = [r for r in rows if poisoned[pub[r]]][:2]
+    good = [r for r in rows if not poisoned[pub[r]]][:dcfg.alpha - len(bad)]
+    check(len(bad) >= 1 and len(bad) + len(good) == dcfg.alpha,
+          f"screen: {len(bad)} poisoning and {len(good)} normal rows published")
+    pick = bad + good
+    x = bank.rows.index_select(0, torch.as_tensor(slot[pick], device="cuda").long())
+    torch.cuda.synchronize()
+    cuda_build.LAUNCHES.clear()
+    scores = anomaly.parameter_outlier_scores(x)
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.LAUNCHES)
+    cpu = anomaly.parameter_outlier_scores(x.cpu())
+    scale = distance_scale(x.cpu())
+    row_scale = (scale.sum(1) - scale.diagonal()) / max(len(pick) - 1, 1)
+    err = (scores.cpu().double() - cpu.double()).abs()
+    check(bool((err <= DIST_TOL * row_scale).all()), f"screen: card off the CPU by {err.max()}")
+    check(launches.get("model_distance", 0) == 1, f"screen: launches {launches}")
+    out["d_outlier_screen"] = {
+        "alpha": len(pick), "params": int(x.shape[1]), "launches": launches,
+        "scores_poisoning": scores[:len(bad)].cpu().tolist(),
+        "scores_normal": scores[len(bad):].cpu().tolist(),
+        "max_abs_err_vs_cpu": float(err.max()),
+        "publishers": [int(pub[r]) for r in pick]}
+    del res, bank, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_small_fault_agreement():
+    """Phase 3h: small faulted runs with telemetry on, on the card and on the
+    CPU with the same tip, edge and fault draws (numpy-made): (b) spoofers on
+    the starved ring's bank, ticks, and on the jittered ring's bank with
+    int4, events; (c) a crash window, selective forwarders and a sybil,
+    bankless ticks. Ledgers, transport and fault state, fault reports and
+    telemetry reports (rejected and quarantined series, REJECT records)
+    bitwise; the f32 byte sums within 1e-6."""
+    from repro_torch.fl.experiments import default_dagfl_config, make_cnn_setup
+    from repro_torch.fl.systems import SimConfig, run_dagfl_gossip
+    from repro_torch.kernels.delta_codec import DeltaCodec
+    from repro_torch.net.bank import BankGossipConfig
+    from repro_torch.net.faults import FaultConfig
+    from repro_torch.net.topology import ring
+    from repro_torch.obs import KIND_REJECT, HistConfig, ObsConfig
+
+    n = 8
+    dcfg = default_dagfl_config(num_nodes=n)
+    sim = SimConfig(iterations=20, eval_every=5, seed=0)
+    spoof = FaultConfig(roles=(4, 0, 0, 0, 4, 0, 0, 0), quarantine_after=2, spoof_rate=0.8)
+    arms = {
+        "b_ticks_bank": dict(topology=ring(n, drop=0.3, link_latency=1.5, bandwidth=1e7),
+                             bank_gossip=BankGossipConfig(chunks_per_slot=MAIN_CHUNKS,
+                                                          slot_bytes=TABLE1_SLOT_BYTES),
+                             faults=spoof),
+        "b_events_bank_int4": dict(
+            topology=ring(n, drop=0.3, link_latency=0.5, latency_jitter=1.0, bandwidth=1e6),
+            bank_gossip=BankGossipConfig(chunks_per_slot=MAIN_CHUNKS,
+                                         slot_bytes=TABLE1_SLOT_BYTES, codec=DeltaCodec("int4")),
+            engine="events", faults=spoof),
+        "c_ticks_mixed": dict(topology=ring(n, drop=0.3, link_latency=1.5),
+                              faults=FaultConfig(roles=(1, 0, 3, 0, 5, 0, 3, 0), crash_start=5.0,
+                                                 crash_end=12.0, forward_prob=0.5)),
+    }
+
+    def fault_draw_on(device):
+        def draw(stream, index, shape):
+            key = [4, ("edges", "spoof", "spoof_batch").index(stream), *np.atleast_1d(index)]
+            rng = np.random.default_rng([int(v) for v in key])
+            return torch.from_numpy(rng.random(shape, dtype=np.float32)).to(device)
+        return draw
+
+    out = {}
+    for arm, options in arms.items():
+        res = {}
+        for device in ("cuda", "cpu"):
+            task, nodes, gval, _ = make_cnn_setup(num_nodes=n, seed=0)
+            draw, edge_draw = small_draws(device, n, dcfg.capacity)
+            res[device] = run_dagfl_gossip(task, nodes, dcfg, sim, gval, device=device,
+                                           draw=draw, edge_draw=edge_draw,
+                                           fault_draw=fault_draw_on(device),
+                                           obs=ObsConfig(hist=HistConfig()), **options)
+        g, c = res["cuda"], res["cpu"]
+        what = f"faults small {arm}"
+        codec = options.get("bank_gossip") and options["bank_gossip"].codec
+        tol = 1e-4 + (max(float(v.abs().max()) for v in c.final_params.values()) / 7
+                      if codec is not None else 0.0)
+        if "bank_gossip" in options:
+            diff = check_same_bank_run(what, g, c, tol)
+        else:
+            check_same_run(what, g, c)
+            diff = max(float((g.final_params[k].cpu() - c.final_params[k]).abs().max())
+                       for k in c.final_params)
+            check(diff <= tol, f"{what}: final params differ by {diff}")
+        rg, rc = g.extras["fault_report"], c.extras["fault_report"]
+        check(rg.keys() == rc.keys(), f"{what}: fault report keys")
+        for key in rc:
+            check(np.array_equal(np.asarray(rg[key]), np.asarray(rc[key])),
+                  f"{what}: fault report {key} differs")
+        check_same_report(what, g.extras["obs"], c.extras["obs"])
+        rep = g.extras["obs"]
+        summary = {"final_params_max_abs_diff": diff, "rounds": rep.rounds,
+                   "events_processed": g.extras["events_processed"]}
+        if "bank_gossip" in options:
+            check(rg["rejected_total"] > 0 and (rep.trace["kind"] == KIND_REJECT).any()
+                  and rep.series["rejected"][-1] > 0,
+                  f"{what}: no rejection recorded")
+            summary.update(rejected=rg["rejected_total"], quarantined=rg["quarantined_links"],
+                           reject_records=int((rep.trace["kind"] == KIND_REJECT).sum()))
+        out[arm] = summary
+    return out
+
+
 def nvidia_smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1751,7 +2102,7 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.device import resolve_device
     from repro_torch.kernels import chunk_transfer, cuda_build, delta_codec, event_pop, fedavg
-    from repro_torch.kernels import gossip_merge, hist_bincount
+    from repro_torch.kernels import gossip_merge, hist_bincount, model_distance
 
     resolve_device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -1806,6 +2157,10 @@ def main() -> int:
         obs_paths = phase_obs_main_path(cuda_build, tip_sims["e_table1"]["runs"][0])
         print(json.dumps({"obs_main_path": obs_paths}))
         print(f"[phase 2g] telemetry paths: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        fault_paths = phase_fault_main_path(cuda_build)
+        print(json.dumps({"fault_main_path": fault_paths}))
+        print(f"[phase 2h] fault injection paths: {time.perf_counter() - t:.1f} s")
         print(json.dumps({"profile_events": phase_profile(
             "run_dagfl_gossip",
             label="run_dagfl_gossip(engine=events, 1 Mbit/s, 0.5 s links, int4)",
@@ -1831,6 +2186,9 @@ def main() -> int:
         t = time.perf_counter()
         print(json.dumps({"small_obs_agreement": phase_small_obs_agreement()}))
         print(f"[phase 3g] telemetry, card against CPU: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        print(json.dumps({"small_fault_agreement": phase_small_fault_agreement()}))
+        print(f"[phase 3h] fault injection, card against CPU: {time.perf_counter() - t:.1f} s")
         gossip_cases = phase_gossip_kernel(gossip_merge)
         print(json.dumps({"gossip_cases": gossip_cases}))
         dedup_cases = phase_dedup_kernel(chunk_transfer)
@@ -1848,6 +2206,10 @@ def main() -> int:
         hist_cases = phase_hist_kernel(hist_bincount)
         print(json.dumps({"hist_bincount_cases": hist_cases}))
         print(f"[phase 1f] hist_bincount vs plain: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        distance_cases = phase_distance_kernel(model_distance)
+        print(json.dumps({"model_distance_cases": distance_cases}))
+        print(f"[phase 1h] model_distance vs plain: {time.perf_counter() - t:.1f} s")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1950,6 +2312,22 @@ def main() -> int:
         "bound_ms": hist_main["bound_ms"],
         "bound_by": hist_main["bound_by"],
         "library_ms": hist_main["library_ms"],   # torch.bincount, host in the loop
+    })
+    distance_main = next(c for c in distance_cases if c["case"] == "main_k5")
+    kernels.append({
+        "name": "model_distance",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/model_distance.cu",
+        "replaces": "src/repro/kernels/model_distance.py:32",
+        "launches": fault_paths["d_outlier_screen"]["launches"].get("model_distance", 0),
+        "max_abs_err": max(c["max_abs_err"] for c in distance_cases),
+        "ms": distance_main["ms"],
+        "kernel_ms": distance_main["ms"],
+        "call_ms": distance_main["call_ms"],
+        "plain_ms": distance_main["plain_ms"],
+        "bound_ms": distance_main["bound_ms"],
+        "bound_by": distance_main["bound_by"],
+        "library_ms": distance_main["library_ms"],   # torch.cdist (the root), via a product
     })
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

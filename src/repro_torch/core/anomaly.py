@@ -3,8 +3,11 @@
 The paper's detector: a transaction with <= m approvals is *isolated*; a
 node's contribution rate r = contributing / published. Abnormal nodes show
 r0 / r well below 1 (Table IV). ``credit_scores`` implements the §VI.B
-extension. The model-space screen (``parameter_outlier_scores``) comes with
-the model-distance kernel.
+extension (tips from low-credit nodes get down-weighted during selection),
+``rejection_credit`` its transport-layer complement (fault injection,
+``repro_torch.net.faults``), and ``parameter_outlier_scores`` the §VI.A-style
+model-space validation on the pairwise-distance kernel
+(``repro_torch.kernels.model_distance``).
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.dag import DagState
+from repro_torch.kernels import model_distance as md_kernel
 
 
 class ContributionReport(NamedTuple):
@@ -57,3 +61,27 @@ def rejection_credit(
     """
     per_sender = torch.sum(torch.as_tensor(rejects).to(torch.int32), dim=0).float()
     return torch.clamp(torch.exp(-scale * per_sender), floor, 1.0)
+
+
+def credit_weighted_tip_scores(
+    dag: DagState, tip_scores: torch.Tensor, credits: torch.Tensor
+) -> torch.Tensor:
+    """Scale gumbel tip-selection scores by the publisher's credit."""
+    pub = torch.clamp(dag.publisher, min=0).long()
+    c = credits[pub]
+    return tip_scores + torch.log(torch.where(dag.publisher >= 0, c, 1.0))
+
+
+def parameter_outlier_scores(flat_models: torch.Tensor) -> torch.Tensor:
+    """§VI.A-style model-space screening of candidate tips.
+
+    flat_models (k, N) -> (k,) mean squared-L2 distance to the other
+    candidates (``model_distance``: the kernel on a card); poisoned models
+    sit far from the normal cluster.
+    """
+    d = md_kernel.model_distance(flat_models)                 # (k, k)
+    k = d.shape[0]
+    off = torch.where(torch.eye(k, dtype=torch.bool, device=d.device), 0.0, d)
+    total = off.sum(dim=1)
+    # a tensor divisor: a Python scalar would be a reciprocal multiply
+    return total / torch.full_like(total, max(k - 1, 1))

@@ -23,7 +23,10 @@ ledger replica, synced by anti-entropy gossip over an overlay
 too, priced per link (``repro_torch.net.bank``), and a node sees only the
 transactions whose models it has received. With ``obs`` the overlay's
 telemetry runs in every loop and ``extras["obs"]`` holds the drained
-``ObsReport`` (``repro_torch.obs``).
+``ObsReport`` (``repro_torch.obs``). With ``faults`` adversary roles act in
+the overlay (``repro_torch.net.faults``; its draws go through
+``fault_draw``), the rejection credit biases tip selection, and
+``extras["fault_report"]`` holds the post-mortem.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import DagFLConfig
+from repro_torch.core import anomaly
 from repro_torch.core.aggregation import unflatten_params
 from repro_torch.core.anomaly import contribution_rates
 from repro_torch.core.consensus import commit_prepared, make_dagfl_stages
@@ -375,10 +379,11 @@ class _GossipLedger:
     name = "dagfl_gossip"
 
     def __init__(self, state, topology, gossip, partition, bank_gossip=None, edge_draw=None,
-                 obs=None):
+                 obs=None, faults=None, fault_draw=None):
         self.net = gossip_lib.GossipNetwork(state.dag, state.bank, topology, gossip, partition,
                                             bank_cfg=bank_gossip, obs_cfg=obs,
-                                            edge_draw=edge_draw)
+                                            faults_cfg=faults, edge_draw=edge_draw,
+                                            fault_draw=fault_draw)
         self.capacity = int(state.dag.publisher.shape[0])
         self.seq = int(state.dag.count)       # genesis consumed sequence 0
         # distinct approvals issued, counted on the device, read once in extras
@@ -415,7 +420,17 @@ class _GossipLedger:
         self.net.trace_span(t1, obs_trace.KIND_COMMIT, node_id, node_id, float(self.seq - 1))
 
     def fault_bias(self):
-        return None
+        """(N+1,) log-credit tip-selection bias from digest rejections, on the
+        device: ``anomaly.rejection_credit`` of the fault layer's cumulative
+        rejection matrix, with a trailing 1.0 for publisher -1 (genesis). A
+        clean sender's credit is exactly 1.0, so its bias is an exact 0 and
+        an attack-free trajectory is untouched; a spoofer's collapses toward
+        the floor. None without a fault-state carry."""
+        fstate = self.net.fault_state
+        if fstate is None:
+            return None
+        credit = anomaly.rejection_credit(fstate.rejects)
+        return torch.log(torch.cat([credit, torch.ones((1,), device=credit.device)]))
 
     def commit(self, node_id, t1, prepared):
         dag_i = self._replica(node_id)
@@ -469,6 +484,9 @@ class _GossipLedger:
         if self.net.obs_cfg is not None:
             # drained telemetry: metric series, trace, histograms, dispatches
             out["obs"] = self.net.obs_report()
+        if self.net.faults_cfg is not None:
+            # the adversary post-mortem: roles, rejections, quarantine, ASR
+            out["fault_report"] = self.net.fault_report()
         return out | {
             # a copy: the replicas are written in place
             "replicas": replicas._replace(dags=replica_lib.snapshot(replicas.dags)),
@@ -505,6 +523,7 @@ def run_dagfl_gossip(
     device="cuda",
     draw: Optional[UniformDraw] = None,
     edge_draw: Optional[gossip_lib.EdgeDraw] = None,
+    fault_draw=None,
 ) -> SimResult:
     """DAG-FL where each node runs Algorithm 2 against its own DAG replica.
 
@@ -534,8 +553,9 @@ def run_dagfl_gossip(
     uniform delay equal to a dyadic sync period the two engines are bitwise
     identical. ``extras["events_processed"]`` counts the event batches.
 
-    ``draw`` and ``edge_draw`` replace the tip-selection and edge draws
-    (``run_dagfl``, ``repro_torch.net.gossip``).
+    ``draw``, ``edge_draw`` and ``fault_draw`` replace the tip-selection,
+    edge and fault draws (``run_dagfl``, ``repro_torch.net.gossip``,
+    ``repro_torch.net.faults``).
 
     ``obs`` (a ``repro_torch.obs.ObsConfig``) turns on the overlay's
     telemetry: metric series, the event trace (with the ledger's PUBLISH and
@@ -545,12 +565,21 @@ def run_dagfl_gossip(
     it as a Chrome trace or JSONL). The obs-on run is bitwise the obs-off
     run.
 
-    ``mesh``, ``faults`` and ``serve`` are not ported yet and raise
+    ``faults`` (a ``repro_torch.net.faults.FaultConfig``) assigns adversary
+    roles in the overlay, on either engine, bankless or banked, with a codec
+    and with ``obs``: crashes, eclipses, selective forwarding and sybil
+    forgery on the edges and rows; with the bank, spoofed payloads against
+    digest verification, back-off and quarantine. Each sender's rejection
+    credit biases tip selection (``fault_bias``: an exact 0 for a clean
+    sender, so ``faults=None`` and an all-honest config give the same run),
+    and ``extras["fault_report"]`` holds roles, rejections, quarantined
+    links and the attack-success numerator.
+
+    ``mesh`` and ``serve`` are not ported yet and raise
     ``NotImplementedError``, alone or with ``bank_gossip``, its codec,
-    ``obs`` or ``engine="events"``.
+    ``obs``, ``faults`` or ``engine="events"``.
     """
-    gossip_lib._unported(mesh=(mesh, "ROADMAP A.12"), faults=(faults, "ROADMAP A.10"),
-                         serve=(serve, "ROADMAP A.11"))
+    gossip_lib._unported(mesh=(mesh, "ROADMAP A.12"), serve=(serve, "ROADMAP A.11"))
     if topology is None:
         topology = topo_lib.full(len(nodes))
     if gossip is None:
@@ -561,6 +590,6 @@ def run_dagfl_gossip(
         task, nodes, dcfg, sim, global_val, weighted,
         lambda state, commit_fn: _GossipLedger(state, topology, gossip, partition,
                                                bank_gossip=bank_gossip, edge_draw=edge_draw,
-                                               obs=obs),
+                                               obs=obs, faults=faults, fault_draw=fault_draw),
         device, draw,
     )

@@ -43,9 +43,18 @@ then completions land, then new iterations read):
                     ported yet, ROADMAP A.11).
 
 Telemetry: both advances take an ``observe`` callback, called after every
-batch with ``(t, old_dags, dags, live, old_bstate, bstate)`` (the
-``GossipNetwork``'s ``observe_round`` step; None runs nothing). The batch
-bodies are functional, so the pre-batch state is the loop's own.
+batch with ``(t, old_dags, dags, live, old_bstate, bstate, old_fstate,
+fstate)`` (the ``GossipNetwork``'s ``observe_round`` step; None runs
+nothing). The batch bodies are functional, so the pre-batch state is the
+loop's own.
+
+Faults: both advances take a ``repro_torch.net.faults.FaultLayer`` (None
+runs none of it). A delivery batch's live mask is attacked after drop loss
+(a suppressed delivery has still used its queue slot) and sybil rows are
+forged after the merge; with the bank the fault-aware service replaces the
+chunk step in every batch, a drain-only one too, and threads the
+``FaultState``. A quarantined link gets no stripe, so its drain slot
+disarms while its deliveries keep firing.
 ``simulate_insystem_tips(record_trace=True)`` records a PUBLISH span per
 started iteration and a COMMIT per landed transaction in a device trace
 ring, and ``InSystemTrace.to_report`` exports a run in the ``repro_torch.obs``
@@ -204,10 +213,11 @@ def _pop_head(qt, qkind, qseq, qv, horizon: float) -> Optional[Head]:
 
 def _deliver_round(dags: DagState, qt, fires, uniform, t: float, qv, qkind, qsrc, qdst, islot,
                    horizon: float, fire_cap: int, part_mask, part_t0: float, part_t1: float,
-                   drop, nbr_idx, nbr_valid, impl: str):
+                   drop, nbr_idx, nbr_valid, impl: str, faults=None):
     """One fused anti-entropy round over every delivery firing at instant
     ``t`` — the one block all three loops run. ``uniform`` is the batch's
-    (N, N) edge draw.
+    (N, N) edge draw; ``faults`` (a ``FaultLayer``) attacks the live mask
+    and forges sybil rows after the merge.
 
     Reschedule: a fired edge moves one interval out; an edge that has fired
     ``fire_cap`` times in this advance window instead jumps to its first
@@ -221,7 +231,11 @@ def _deliver_round(dags: DagState, qt, fires, uniform, t: float, qv, qkind, qsrc
     deliver = _edge_mask(n, qdst, qsrc, batch)
     pm = _partition_mask(t, part_mask, part_t0, part_t1)
     live = deliver & pm & (uniform >= drop)
+    if faults is not None:
+        live = faults.edges(t, live)
     dags = gossip_lib._apply_round(dags, live, nbr_idx, nbr_valid, impl)
+    if faults is not None:
+        dags = faults.inflate(dags)
     fires = fires + batch.to(torch.int32)
     elide = fires >= fire_cap
     skip = (torch.floor((horizon - qt) / islot) + 1.0) * islot
@@ -237,10 +251,11 @@ def _deliver_round(dags: DagState, qt, fires, uniform, t: float, qv, qkind, qsrc
 def advance_events(dags: DagState, queue: EventQueue, islot, next_uniform: NextUniform,
                    horizon: float, limit: int, fire_cap: int, part_mask, part_t0: float,
                    part_t1: float, drop, nbr_idx, nbr_valid, impl: str,
-                   observe: Optional[Observe] = None):
+                   observe: Optional[Observe] = None, faults=None):
     """The event-driven ``advance`` without the bank (the reference's
-    ``_advance_events_jit`` body without faults or serving): every batch is
-    one ``_deliver_round``, then ``observe`` when given. ``horizon``,
+    ``_advance_events_jit`` body, or with ``faults`` its
+    ``_advance_events_faults_jit``, without serving): every batch is one
+    ``_deliver_round``, then ``observe`` when given. ``horizon``,
     ``part_t0`` and ``part_t1`` are f32 values.
 
     Returns ``(dags, qt, qv, done)`` — ``done`` batches ran.
@@ -256,9 +271,10 @@ def advance_events(dags: DagState, queue: EventQueue, islot, next_uniform: NextU
         old = dags
         dags, qt, fires, _dlv, live, _pm = _deliver_round(
             dags, qt, fires, next_uniform(), head.t, qv, queue.kind, qsrc, qdst, islot,
-            horizon, fire_cap, part_mask, part_t0, part_t1, drop, nbr_idx, nbr_valid, impl)
+            horizon, fire_cap, part_mask, part_t0, part_t1, drop, nbr_idx, nbr_valid, impl,
+            faults)
         if observe is not None:
-            observe(head.t, old, dags, live, None, None)
+            observe(head.t, old, dags, live)
         done += 1
     return dags, qt, qv, done
 
@@ -267,9 +283,10 @@ def advance_events_bank(dags: DagState, bstate: bank_lib.BankState, last_srv, di
                         queue: EventQueue, islot, next_uniform: NextUniform, horizon: float,
                         limit: int, fire_cap: int, part_mask, part_t0: float, part_t1: float,
                         drop, nbr_idx, nbr_valid, bw_bytes, chunk_bytes: float, impl: str,
-                        observe: Optional[Observe] = None):
+                        observe: Optional[Observe] = None, faults=None, fstate=None):
     """The event-driven ``advance`` with the model bank gossiped (the
-    reference's ``_advance_events_bank_jit`` plain body).
+    reference's ``_advance_events_bank_jit`` plain body, or with ``faults``
+    and its carry ``fstate`` its ``_advance_events_bank_faults_jit``).
 
     A batch whose head is a delivery runs ``_deliver_round`` (deliveries
     sort before drains at one instant, so the head's kind says whether the
@@ -282,9 +299,11 @@ def advance_events_bank(dags: DagState, bstate: bank_lib.BankState, last_srv, di
     after ``t`` (so a drain always makes progress); fired drains that were suppressed
     retry one chunk-time later. ``chunk_bytes`` is the wire price of a
     chunk (an f32 value: ``chunk_bytes * wire_ratio()`` with a codec).
-    ``observe``, when given, runs after every batch.
+    ``observe``, when given, runs after every batch. With ``faults`` every
+    batch's service is ``FaultLayer.service`` (its spoof draws indexed by
+    the batch's count within this advance) and ``fstate`` is threaded.
 
-    Returns ``(dags, bstate, last_srv, qt, qv, done)``.
+    Returns ``(dags, bstate, fstate, last_srv, qt, qv, done)``.
     """
     n = dags.publisher.shape[0]
     qt, qv = queue.time, queue.valid
@@ -302,22 +321,26 @@ def advance_events_bank(dags: DagState, bstate: bank_lib.BankState, last_srv, di
         if head is None:
             break
         t = head.t
-        old_dags, old_bstate = dags, bstate
+        old_dags, old_bstate, old_fstate = dags, bstate, fstate
         batch = qv & (qt == t)
         drain = _edge_mask(n, qdst, qsrc, batch & is_drn)
         if head.kind == KIND_DELIVER:
             dags, qt, fires, deliver, live, pm = _deliver_round(
                 dags, qt, fires, next_uniform(), t, qv, qkind, qsrc, qdst, islot, horizon,
-                fire_cap, part_mask, part_t0, part_t1, drop, nbr_idx, nbr_valid, impl)
+                fire_cap, part_mask, part_t0, part_t1, drop, nbr_idx, nbr_valid, impl, faults)
         else:
             deliver = live = torch.zeros((n, n), dtype=torch.bool, device=qt.device)
             pm = _partition_mask(t, part_mask, part_t0, part_t1)
         svc = live | (drain & pm)
         sched = deliver | drain
         accr = torch.where(svc, (t - last_srv) * bw_bytes, 0.0)
-        sat = chunk_kernel.chunk_dedup(bstate.have, digest)
-        bstate, pending = bank_lib.chunk_step(dags, bstate, digest, sat, sat, svc, accr,
-                                              chunk_bytes, return_pending=True)
+        if faults is None:
+            sat = chunk_kernel.chunk_dedup(bstate.have, digest)
+            bstate, pending = bank_lib.chunk_step(dags, bstate, digest, sat, sat, svc, accr,
+                                                  chunk_bytes, return_pending=True)
+        else:
+            bstate, fstate, pending = faults.service(dags, bstate, fstate, digest, svc, accr,
+                                                     chunk_bytes, batch=done)
         last_srv = torch.where(sched, t, last_srv)
         t_next = float(np.nextafter(np.float32(t), np.float32(np.inf)))
         e_next = torch.clamp(t + (chunk_bytes - bstate.credit) / rate, min=t_next)[qdst, qsrc]
@@ -328,9 +351,9 @@ def advance_events_bank(dags: DagState, bstate: bank_lib.BankState, last_srv, di
         qt = torch.where(is_drn & e_svc, torch.where(e_pend, e_next, torch.inf), qt)
         qt = torch.where(batch & is_drn & ~e_svc, e_retry, qt)
         if observe is not None:
-            observe(t, old_dags, dags, live, old_bstate, bstate)
+            observe(t, old_dags, dags, live, old_bstate, bstate, old_fstate, fstate)
         done += 1
-    return dags, bstate, last_srv, qt, qv, done
+    return dags, bstate, fstate, last_srv, qt, qv, done
 
 
 # ---------------------------------------------------------------------------

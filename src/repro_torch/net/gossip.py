@@ -56,9 +56,19 @@ the pre- and post-round replicas (the round bodies are functional, so the
 loop's own pre-round state is the copy it reads); ``obs_report`` drains the
 collectors. It reads only: the obs-on trajectory is bitwise the obs-off one.
 
-Both engines are ported, with or without bank gossip, its codec and
-telemetry; faults, serving and a mesh are not, and ``GossipNetwork`` raises
-``NotImplementedError`` naming the ROADMAP item for each of those options.
+Fault injection (``faults_cfg=repro_torch.net.faults.FaultConfig(...)``):
+per-node adversary roles act inside every round of either engine and in
+``converge`` (edge suppression before the merge, approver forgery after it)
+and, with the bank gossiped, in the chunk service (spoofed payloads, digest
+verification, back-off and quarantine); the fault draws go through
+``fault_draw`` as the edge draws go through ``edge_draw``
+(``repro_torch.net.faults``). An all-honest config is bitwise the
+``faults_cfg=None`` run.
+
+Both engines are ported, with or without bank gossip, its codec, telemetry
+and fault injection; serving and a mesh are not, and ``GossipNetwork``
+raises ``NotImplementedError`` naming the ROADMAP item for each of those
+options.
 """
 from __future__ import annotations
 
@@ -77,6 +87,7 @@ from repro_torch.kernels import chunk_transfer as chunk_kernel
 from repro_torch.kernels import delta_codec
 from repro_torch.kernels import gossip_merge as gossip_kernel
 from repro_torch.net import bank as bank_lib
+from repro_torch.net import faults as faults_lib
 from repro_torch.net import replica as replica_lib
 from repro_torch.net.bank import BankGossipConfig, BankState
 from repro_torch.net.topology import Topology, neighbor_table, partition_matrix
@@ -279,8 +290,9 @@ def _unported(**options) -> None:
 class GossipNetwork:
     """The overlay on the host side: replicas, the tick clock, schedule batching.
 
-    The replicas live on the device of ``dag``. ``edge_draw`` replaces the
-    default edge draws (see the module docstring).
+    The replicas live on the device of ``dag``. ``edge_draw`` and
+    ``fault_draw`` replace the default edge and fault draws (see the module
+    docstrings of this module and of ``repro_torch.net.faults``).
     """
 
     def __init__(
@@ -296,9 +308,9 @@ class GossipNetwork:
         faults_cfg=None,
         serve_cfg=None,
         edge_draw: Optional[EdgeDraw] = None,
+        fault_draw: Optional[faults_lib.FaultDraw] = None,
     ):
-        _unported(mesh=(mesh, "ROADMAP A.12"), faults_cfg=(faults_cfg, "ROADMAP A.10"),
-                  serve_cfg=(serve_cfg, "ROADMAP A.11"))
+        _unported(mesh=(mesh, "ROADMAP A.12"), serve_cfg=(serve_cfg, "ROADMAP A.11"))
         if cfg.engine not in ("ticks", "events"):
             raise ValueError(f"unknown gossip engine: {cfg.engine!r}")
         if cfg.impl not in ("fused", "scan", "lax"):
@@ -310,6 +322,16 @@ class GossipNetwork:
         self.partition = partition
         self.bank_cfg = bank_cfg
         self.device = dev
+        self.faults_cfg = faults_cfg
+        self._faults = None
+        self._fstate = None          # the defense's carry: bank runs with faults only
+        if faults_cfg is not None:
+            faults_lib.validate_faults(faults_cfg, n, bank=bank_cfg is not None)
+            self._faults = faults_lib.FaultLayer(
+                faults_cfg, dev,
+                fault_draw if fault_draw is not None else faults_lib.torch_fault_draw(cfg.seed,
+                                                                                      dev),
+                lambda: self.edge_draws)
         self.replicas = replica_lib.init_replicas(dag, bank, n)
         if bank_cfg is not None:
             self._init_bank(bank, top, cfg, bank_cfg)
@@ -336,6 +358,9 @@ class GossipNetwork:
         self.events_capped = 0       # advances that stopped at max_events_per_advance
         period = cfg.sync_period
         self._next_tick_t = period if period > 0 else 0.0
+        # a tick's f32 instant is (tick + 1) * _period: telemetry's samples
+        # and the crash windows read it
+        self._period = float(np.float32(max(period, 0.0)))
         if cfg.engine == "events":
             self._init_events(top, bank_cfg, partition)
         self.obs_cfg = obs_cfg
@@ -372,6 +397,8 @@ class GossipNetwork:
         self._cap_bytes = torch.from_numpy(np.asarray(cap, np.float32)).to(self.device)
         self.replicas = self.replicas._replace(
             bank_state=bank_lib.init_bank_state(top.num_nodes, slots, c, self.device))
+        if self.faults_cfg is not None:
+            self._fstate = faults_lib.init_fault_state(top.num_nodes, slots, c, self.device)
 
     def _init_events(self, top: Topology, bank_cfg, partition) -> None:
         from repro_torch.net import events as events_lib
@@ -396,7 +423,6 @@ class GossipNetwork:
         """The telemetry state on the device, and the host span buffer."""
         self._metrics = obs_lib.init_metrics(n, obs_cfg, self.device)
         self._ring = obs_lib.init_trace(obs_cfg.trace_capacity, self.device)
-        self._obs_period = float(np.float32(max(self.cfg.sync_period, 0.0)))
         self._host_events = []        # (t, kind, src, dst, arg) spans
         self._part_logged = [False, False]
         if obs_cfg.hist is not None:
@@ -485,11 +511,17 @@ class GossipNetwork:
     # --- telemetry (only when constructed with obs_cfg) ---------------------
 
     def _observe(self, t: float, old: DagState, new: DagState, edges: torch.Tensor,
-                 old_b: Optional[BankState], new_b: Optional[BankState]) -> None:
-        """The collector step after one executed round (``obs.observe_round``)."""
+                 old_b: Optional[BankState] = None, new_b: Optional[BankState] = None,
+                 old_f: Optional[faults_lib.FaultState] = None,
+                 new_f: Optional[faults_lib.FaultState] = None) -> None:
+        """The collector step after one executed round (``obs.observe_round``);
+        a faulted bank run also passes its rejection state."""
         bank = {} if new_b is None else dict(
             bytes_delta=new_b.sent - old_b.sent, bstate=new_b, digest=self._digest,
             old_have=old_b.have)
+        if new_f is not None:
+            bank.update(rejects=new_f.rejects, rejects_delta=new_f.rejects - old_f.rejects,
+                        quarantine_after=self.faults_cfg.quarantine_after)
         self._metrics, self._ring = obs_lib.observe_round(
             self.obs_cfg, self._metrics, self._ring, t, old, new, live_edges=edges, **bank)
 
@@ -554,6 +586,9 @@ class GossipNetwork:
             "chunk_lag": float(self.missing_chunks().max()),
             "staleness": float(self.missing_rows().max()),
         }
+        if self._fstate is not None:
+            final["rejected"] = float(self._fstate.rejects.cpu().numpy().astype(np.int64).sum())
+            final["quarantined"] = float(self.quarantined_links().sum())
         hist = (hist_lib.report_dict(m.hist, self.obs_cfg.hist)
                 if self.obs_cfg.hist is not None else None)
         return obs_lib.ObsReport(
@@ -570,6 +605,74 @@ class GossipNetwork:
             final=final,
             hist=hist,
         )
+
+    # --- fault injection (only when constructed with faults_cfg) ------------
+
+    @property
+    def fault_state(self) -> Optional[faults_lib.FaultState]:
+        """The defense's carry (``rejects``, ``tainted``) on the device; None
+        without faults or without bank gossip."""
+        return self._fstate
+
+    def quarantined_links(self) -> np.ndarray:
+        """(N, N) bool — links the digest check has cut (``rejects >=
+        quarantine_after``). All False without faults or without bank gossip
+        (bankless faults carry no rejection state)."""
+        n = self.topology.num_nodes
+        if self._fstate is None:
+            return np.zeros((n, n), bool)
+        return faults_lib.quarantined(self._fstate, self.faults_cfg).cpu().numpy()
+
+    def rejection_credit(self) -> Optional[np.ndarray]:
+        """(N,) per-sender trust from cumulative digest rejections
+        (``anomaly.rejection_credit``): 1.0 for clean senders, floored near 0
+        for spoofers. None without a fault-state carry."""
+        if self._fstate is None:
+            return None
+        from repro_torch.core import anomaly
+
+        return anomaly.rejection_credit(self._fstate.rejects).cpu().numpy()
+
+    def tainted_in_views(self) -> np.ndarray:
+        """(N,) corrupted chunks referenced by rows visible in each node's
+        gated view — the attack-success numerator. With digest verification
+        on it is identically zero: corrupted payloads never set a presence
+        bit, so ``gate_view`` never exposes a row backed by them."""
+        n = self.topology.num_nodes
+        out = np.zeros(n, np.int64)
+        if self._fstate is None:
+            return out
+        tainted = self._fstate.tainted.cpu().numpy()
+        for i in range(n):
+            view = self.read_view(i)
+            slots = view.model_slot.cpu().numpy()[view.publisher.cpu().numpy() >= 0]
+            slots = np.unique(slots[slots >= 0])
+            out[i] = int(tainted[i, slots, :].sum())
+        return out
+
+    def fault_report(self) -> Optional[dict]:
+        """The adversary and defense state on the host: roles, the per-link
+        rejection matrix, the quarantined-link count, per-node tainted-chunk
+        counts, the attack-success numerator (``tainted_in_views``) and the
+        rejection credit. None without fault injection."""
+        if self.faults_cfg is None:
+            return None
+        report = {
+            "roles": np.asarray(self.faults_cfg.roles, np.int32),
+            "verify_digests": self.faults_cfg.verify_digests,
+        }
+        if self._fstate is not None:
+            rejects = self._fstate.rejects.cpu().numpy()
+            report.update(
+                rejects=rejects,
+                rejected_total=int(rejects.astype(np.int64).sum()),
+                quarantined_links=int(self.quarantined_links().sum()),
+                tainted_chunks=self._fstate.tainted.sum(dim=(1, 2), dtype=torch.int32)
+                .cpu().numpy(),
+                tainted_in_views=self.tainted_in_views(),
+                rejection_credit=self.rejection_credit(),
+            )
+        return report
 
     # --- the clock ---------------------------------------------------------
 
@@ -596,14 +699,27 @@ class GossipNetwork:
         self.edge_draws += 1
         return uniform
 
-    def _round(self, dags: DagState, bstate: Optional[BankState], tick: int,
-               part_mask: torch.Tensor):
+    def _round(self, dags: DagState, bstate: Optional[BankState],
+               fstate: Optional[faults_lib.FaultState], tick: int, part_mask: torch.Tensor):
         """One executed round: the next edge draw, the sampled mask, the merge
-        and, with the bank gossiped, the chunk step. Returns (dags, bstate)."""
+        and, with the bank gossiped, the chunk step. With faults the mask is
+        attacked before the merge, sybil rows are forged after it, and the
+        bank's service is the fault-aware one. Returns (dags, bstate, fstate)."""
         uniform = self._next_uniform()
         self.rounds_run += 1
         edges = _sample_edges(uniform, tick, part_mask, self._adj, self._drop, self._stride)
-        if bstate is None:
+        t = tick_time(tick, self._period)
+        fl = self._faults
+        newf = fstate
+        if fl is not None:
+            edges = fl.edges(t, edges)
+            new = fl.inflate(_apply_round(dags, edges, self._nbr_idx, self._nbr_valid,
+                                          self.cfg.impl))
+            newb = None
+            if bstate is not None:
+                newb, newf, _pending = fl.service(new, bstate, fstate, self._digest, edges,
+                                                  self._cap_bytes, self._wire_chunk_bytes)
+        elif bstate is None:
             new, newb = _apply_round(dags, edges, self._nbr_idx, self._nbr_valid,
                                      self.cfg.impl), None
         else:
@@ -611,15 +727,16 @@ class GossipNetwork:
                                           self._nbr_valid, self._cap_bytes,
                                           self._wire_chunk_bytes, self.cfg.impl)
         if self.obs_cfg is not None:
-            self._observe(tick_time(tick, self._obs_period), dags, new, edges, bstate, newb)
-        return new, newb
+            self._observe(t, dags, new, edges, bstate, newb, fstate, newf)
+        return new, newb, newf
 
     def _advance_window(self, ticks, part_active) -> None:
-        dags, bstate = self.replicas.dags, self.replicas.bank_state
+        dags, bstate, fstate = self.replicas.dags, self.replicas.bank_state, self._fstate
         for tick, pact in zip(ticks, part_active):
-            dags, bstate = self._round(dags, bstate, tick,
-                                       self._part_mask if pact else self._all_mask)
+            dags, bstate, fstate = self._round(dags, bstate, fstate, tick,
+                                               self._part_mask if pact else self._all_mask)
         self.replicas = self.replicas._replace(dags=dags, bank_state=bstate)
+        self._fstate = fstate
 
     def _run_ticks(self, ticks, part_active) -> None:
         """Execute a batch of sync ticks as one entry point."""
@@ -646,16 +763,17 @@ class GossipNetwork:
                   self._nbr_idx, self._nbr_valid)
         observe = self._observe if self.obs_cfg is not None else None
         if self.bank_cfg is not None:
-            dags, bstate, self._last_srv, qt, qv, done = self._dispatch(
+            dags, bstate, self._fstate, self._last_srv, qt, qv, done = self._dispatch(
                 "advance_events_bank", events_lib.advance_events_bank,
                 self.replicas.dags, self.replicas.bank_state, self._last_srv, self._digest,
                 self._equeue, self._eislot, self._next_uniform, *window, self._bw_bytes,
-                self._wire_chunk_bytes, cfg.impl, observe)
+                self._wire_chunk_bytes, cfg.impl, observe, self._faults, self._fstate)
             self.replicas = self.replicas._replace(dags=dags, bank_state=bstate)
         else:
             dags, qt, qv, done = self._dispatch(
                 "advance_events", events_lib.advance_events, self.replicas.dags,
-                self._equeue, self._eislot, self._next_uniform, *window, cfg.impl, observe)
+                self._equeue, self._eislot, self._next_uniform, *window, cfg.impl, observe,
+                self._faults)
             self.replicas = self.replicas._replace(dags=dags)
         self._equeue = self._equeue._replace(time=qt, valid=qv)
         self.tick += done
@@ -696,18 +814,21 @@ class GossipNetwork:
         return bstate is None or int(bank_lib.missing_chunks(dags, bstate, self._digest).max()) == 0
 
     def _converge_loop(self, part_mask: torch.Tensor, limit: int, stall_limit: int) -> bool:
-        dags, bstate = self.replicas.dags, self.replicas.bank_state
+        dags, bstate, fstate = self.replicas.dags, self.replicas.bank_state, self._fstate
         stalled = done = 0
         while done < limit and stalled < stall_limit and not self._synced(dags, bstate):
-            new, newb = self._round(dags, bstate, self.tick, part_mask)
+            new, newb, newf = self._round(dags, bstate, fstate, self.tick, part_mask)
             same = trees_equal(new, dags)
             if bstate is not None:      # credit accrual on a pending link is progress
                 same = same & trees_equal(newb, bstate)
+            if fstate is not None:      # so are rejections accruing toward quarantine
+                same = same & trees_equal(newf, fstate)
             stalled = stalled + 1 if bool(same) else 0
-            dags, bstate = new, newb
+            dags, bstate, fstate = new, newb, newf
             self.tick += 1
             done += 1
         self.replicas = self.replicas._replace(dags=dags, bank_state=bstate)
+        self._fstate = fstate
         return self._synced(dags, bstate)
 
     def converge(self, at_time: float = float("inf")) -> bool:

@@ -43,20 +43,27 @@ def observe_round(
     bstate=None,               # post-round BankState (bank runs only)
     digest=None,
     old_have=None,             # (N, S, C) bool chunk presence before the round
+    rejects=None,              # (N, N) i32 cumulative digest rejections
+    rejects_delta=None,        # (N, N) i32 rejections charged this round
+    quarantine_after=0,
 ) -> tuple:
     """The collector step every obs-on loop runs after a round.
 
     One metrics accumulation and sample, one DELIVER trace append over the
     surviving edges (arg = rows the receiver merged) and, where payload
-    moved, one DRAIN append (arg = bytes). With ``cfg.hist`` the histograms
-    take the round's publish->merge and publish->commit samples, and the
-    chunk completions when the bank state and ``old_have`` are passed. A
-    pure read of its inputs; returns ``(metrics, ring)``, both updated in
-    place.
+    moved, one DRAIN append (arg = bytes). Fault runs
+    (``repro_torch.net.faults``) also pass their rejection state: the
+    rejected and quarantined series sample from ``rejects``, and each link
+    that rejected chunks this round appends one REJECT record (arg = its
+    rejections). With ``cfg.hist`` the histograms take the round's
+    publish->merge and publish->commit samples, and the chunk completions
+    when the bank state and ``old_have`` are passed. A pure read of its
+    inputs; returns ``(metrics, ring)``, both updated in place.
     """
     t = torch.full((), t, dtype=torch.float32, device=new_dags.publisher.device)
     delta = _metrics_lib.rows_changed(new_dags, old_dags)
-    metrics = _metrics_lib.update(metrics, cfg, t, new_dags, delta, bstate, digest)
+    metrics = _metrics_lib.update(metrics, cfg, t, new_dags, delta, bstate, digest,
+                                  rejects=rejects, quarantine_after=quarantine_after)
     if cfg.hist is not None:
         metrics.hist = _hist_lib.observe(cfg.hist, metrics.hist, t, old_dags, new_dags,
                                          old_have=old_have, bstate=bstate)
@@ -66,6 +73,9 @@ def observe_round(
             ring = _trace_lib.append_edges(ring, t, KIND_DELIVER, live_edges, arg)
         if bytes_delta is not None:
             ring = _trace_lib.append_edges(ring, t, KIND_DRAIN, bytes_delta > 0, bytes_delta)
+        if rejects_delta is not None:
+            ring = _trace_lib.append_edges(ring, t, KIND_REJECT, rejects_delta > 0,
+                                           rejects_delta.float())
     return metrics, ring
 
 

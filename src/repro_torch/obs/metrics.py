@@ -28,7 +28,9 @@ Series (capacity S, one row per round; past S a sample is counted in
   ``bytes_total``     cumulative payload bytes;
   ``staleness_node``  (S, N) per-node lag behind the union;
   ``staleness_link``  (S, N, N) rows receiver i lacks of sender j's view;
-  ``rejected``, ``quarantined``  fault injection (zeros until it is ported);
+  ``rejected``        cumulative digest rejections (fault runs with the
+                      bank; zeros otherwise);
+  ``quarantined``     directed links quarantined (the same);
   ``requests_served`` (S, N), ``serve_staleness`` (S,) serving (zeros and
                       the -1 sentinel until it is ported).
 
@@ -136,12 +138,16 @@ def update(
     rows_delta: torch.Tensor,              # (N,) i32 from rows_changed
     bstate: Optional[bank_lib.BankState] = None,
     digest: Optional[torch.Tensor] = None,
+    rejects: Optional[torch.Tensor] = None,  # (N, N) i32 cumulative rejections
+    quarantine_after: int = 0,
 ) -> MetricsState:
     """Accumulate one round and sample one series row, in place; returns ``m``.
 
-    The fault and serving series keep their initial values (zeros, and -1
-    for serve_staleness), as the reference's do without fault or serving
-    state; their arguments come with those layers (ROADMAP A.10, A.11).
+    ``rejects`` is the fault layer's cumulative rejection matrix (faulted
+    bank runs only); without it the rejected and quarantined samples stay
+    zero. The serving series keep their initial values (zeros, and -1 for
+    serve_staleness), as the reference's do without serving state; their
+    arguments come with that layer (ROADMAP A.11).
     """
     m.rounds += 1
     m.rows_merged += rows_delta
@@ -163,4 +169,7 @@ def update(
     if bstate is not None:
         m.chunk_lag[slot] = bank_lib.missing_chunks(dags, bstate, digest).max()
         m.bytes_total[slot] = bstate.sent.sum()
+    if rejects is not None:
+        m.rejected[slot] = rejects.sum(dtype=torch.int32)
+        m.quarantined[slot] = (rejects >= quarantine_after).sum(dtype=torch.int32)
     return m

@@ -25,7 +25,8 @@ Record kinds (``arg`` per kind):
                       arg = global sequence number;
   ``KIND_PARTITION``  partition transition (host record); arg = 1.0 begin /
                       0.0 heal, src = dst = -1;
-  ``KIND_REJECT``     digest rejections (fault injection, not ported yet);
+  ``KIND_REJECT``     digest rejections src -> dst this round (fault
+                      injection with the bank); arg = rejections;
   ``KIND_INFER``      an inference batch admitted (serving, not ported yet).
 """
 from __future__ import annotations

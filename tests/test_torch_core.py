@@ -11,6 +11,13 @@ the two sides sum it in different orders, so tags agree to 1e-5 of the sum
 of the absolute terms, well inside ``authenticate``'s own 1e-3 tolerance.
 Trained parameters agree to 1e-5 (four SGD steps of an f32 CNN computed by
 two libraries).
+
+The model-space screen (``parameter_outlier_scores`` on the pairwise
+distances) sums N products in another order on each side, and a distance's
+diagonal cancels to near 0: it is held within 1e-6 of the sum of the
+absolute terms of each entry, ``sq_i + sq_j + 2 |x_i . x_j|``. The
+credit-weighted tip scores take a log: within 1e-6, exact where the credit
+is 1.0.
 """
 import jax
 import jax.numpy as jnp
@@ -288,3 +295,72 @@ def test_iteration_is_prepare_then_commit_at_one_time():
         assert torch.equal(a, b)
     assert torch.equal(out.bank.rows, bank2.rows)
     assert torch.equal(out.chosen_rows, p.chosen_rows) and int(out.dag.count) == 2
+
+
+# ---------------------------------------------------------------------------
+# the §VI model-space screen and credit-weighted selection
+# ---------------------------------------------------------------------------
+
+# model_distance sums N products in another order on each side (and the
+# diagonal cancels to near 0), so it is held to a bound on the sum of the
+# absolute terms of each entry, sq_i + sq_j + 2 |x_i . x_j|
+DIST_RTOL = 1e-6
+
+
+def distance_scale(x: np.ndarray) -> np.ndarray:
+    x = x.astype(np.float64)
+    sq = (x * x).sum(1)
+    return sq[:, None] + sq[None, :] + 2.0 * np.abs(x @ x.T)
+
+
+def candidate_models(rng, k, n, poisoned=(), zero_row=False):
+    """k flattened candidate models: a normal cluster around one centre, and
+    the ``poisoned`` rows far from it (a boosted, sign-flipped update)."""
+    centre = rng.standard_normal(n).astype(np.float32) * 0.05
+    x = centre + rng.standard_normal((k, n)).astype(np.float32) * 0.01
+    for i in poisoned:
+        x[i] = -4.0 * x[i] + rng.standard_normal(n).astype(np.float32) * 0.2
+    if zero_row:
+        x[-1] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("k,n,poisoned,zero_row", [
+    (5, 20_000, (3,), False), (5, 16_384, (), True), (1, 777, (), False),
+    (16, 40_001, (0, 9, 15), True), (2, 3, (1,), False)])
+def test_parameter_outlier_scores_match_reference(k, n, poisoned, zero_row):
+    """The reference runs its Pallas kernel in interpret mode, as its own
+    tests do on the CPU; the port its plain version. Scores within
+    DIST_RTOL of the mean of each row's off-diagonal scales; a lone poisoned
+    candidate scores above every normal one."""
+    rng = np.random.default_rng(k * 100 + n % 97)
+    x = candidate_models(rng, k, n, poisoned, zero_row)
+    want = np.asarray(j_anomaly.parameter_outlier_scores(jnp.asarray(x)))
+    got = t_anomaly.parameter_outlier_scores(torch.from_numpy(x))
+    assert got.dtype == torch.float32 and got.shape == (k,)
+    scale = distance_scale(x)
+    off = ~np.eye(k, dtype=bool)
+    row_scale = (scale * off).sum(1) / max(k - 1, 1)
+    assert (np.abs(got.numpy() - want) <= DIST_RTOL * row_scale + 1e-30).all()
+    if len(poisoned) == 1 and k >= 3:   # one outlier: it scores above every normal model
+        normal = [i for i in range(k) if i not in poisoned]
+        assert got[poisoned[0]] > got[normal].max()
+    if k == 1:
+        assert got[0] == 0.0
+
+
+def test_credit_weighted_tip_scores_match_reference():
+    rng = np.random.default_rng(8)
+    pub = rng.integers(-1, 6, 32).astype(np.int32)
+    jd = j_dag.empty_dag(32, 2, 7)._replace(publisher=jnp.asarray(pub))
+    td = t_dag.empty_dag(32, 2, 7)._replace(publisher=torch.from_numpy(pub))
+    scores = rng.standard_normal(32).astype(np.float32)
+    credits = np.clip(rng.random(7), 0.05, 1.0).astype(np.float32)
+    credits[2] = 1.0
+    want = np.asarray(j_anomaly.credit_weighted_tip_scores(jd, jnp.asarray(scores),
+                                                           jnp.asarray(credits)))
+    got = t_anomaly.credit_weighted_tip_scores(td, torch.from_numpy(scores),
+                                               torch.from_numpy(credits))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(got.numpy()[pub == 2], scores[pub == 2])
+    np.testing.assert_array_equal(got.numpy()[pub < 0], scores[pub < 0])

@@ -500,12 +500,13 @@ def test_ideal_wire_equals_run_dagfl(impl):
 @pytest.mark.parametrize("option", [
     dict(mesh=object()), dict(bank_gossip=BankGossipConfig(codec=DeltaCodec("int8")),
                               engine="events", serve=object()),
-    dict(bank_gossip=BankGossipConfig(codec=DeltaCodec("int4")), faults=object()),
-    dict(bank_gossip=BankGossipConfig(), faults=object()),
-    dict(engine="events", obs=ObsConfig(), faults=object()),
-    dict(obs=ObsConfig(hist=HistConfig()), serve=object()), dict(faults=object()),
+    dict(bank_gossip=BankGossipConfig(codec=DeltaCodec("int4")), faults=object(),
+         mesh=object()),
+    dict(bank_gossip=BankGossipConfig(), faults=object(), serve=object()),
+    dict(engine="events", obs=ObsConfig(), faults=object(), serve=object()),
+    dict(obs=ObsConfig(hist=HistConfig()), serve=object()), dict(faults=object(), mesh=object()),
     dict(serve=object()),
-    dict(gossip=t_gossip.GossipConfig(engine="events"), faults=object()),
+    dict(gossip=t_gossip.GossipConfig(engine="events"), faults=object(), mesh=object()),
 ])
 def test_unported_options_raise(option):
     task, nodes, gval, _ = t_exp.make_cnn_setup(num_nodes=2, seed=0)
@@ -520,13 +521,15 @@ def test_unported_network_parts_raise():
     for kw in (dict(mesh=object()),
                dict(bank_cfg=BankGossipConfig(codec=DeltaCodec("int8")),
                     cfg=t_gossip.GossipConfig(engine="events"), serve_cfg=object()),
-               dict(bank_cfg=BankGossipConfig(codec=DeltaCodec("topk")), faults_cfg=object()),
-               dict(bank_cfg=BankGossipConfig(), faults_cfg=object()),
+               dict(bank_cfg=BankGossipConfig(codec=DeltaCodec("topk")), faults_cfg=object(),
+                    mesh=object()),
+               dict(bank_cfg=BankGossipConfig(), faults_cfg=object(), serve_cfg=object()),
                dict(obs_cfg=ObsConfig(), mesh=object()),
-               dict(faults_cfg=object()), dict(serve_cfg=object()),
+               dict(faults_cfg=object(), mesh=object()), dict(serve_cfg=object()),
                dict(cfg=t_gossip.GossipConfig(engine="events"), obs_cfg=ObsConfig(),
                     serve_cfg=object()),
-               dict(cfg=t_gossip.GossipConfig(engine="events"), faults_cfg=object())):
+               dict(cfg=t_gossip.GossipConfig(engine="events"), faults_cfg=object(),
+                    serve_cfg=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP A"):
             t_gossip.GossipNetwork(dag, None, top, **kw)
     with pytest.raises(ValueError, match="impl"):

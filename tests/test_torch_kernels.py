@@ -40,6 +40,15 @@ kernel must equal the plain version bitwise (``test_hist_bincount_kernel_on_card
 out-of-range and negative indices dropped; the plain version is held against
 the reference's oracle and its Pallas kernel in ``tests/test_torch_hist.py``
 and here (``test_hist_bincount_plain_matches_ref_and_pallas``).
+
+The pairwise model distance, ``kernels/model_distance.py``: sums of N
+products in another order, and a diagonal that cancels to near 0, so each
+entry is held to a bound on its sum of absolute terms, ``sq_i + sq_j + 2
+|x_i . x_j|``: the plain version within 1e-6 of it against the reference's
+oracle and its interpreted Pallas kernel, the kernel within 1e-5 of it
+against the plain version on the card (``test_model_distance_kernel_on_card``:
+k = 1, 5, 16, 32, N not a multiple of a chunk, a row of zeros, a strided
+view), and bitwise against itself from call to call.
 """
 import numpy as np
 import pytest
@@ -54,6 +63,7 @@ from repro_torch.kernels import event_pop as t_pop
 from repro_torch.kernels import fedavg as t_fedavg
 from repro_torch.kernels import gossip_merge as t_gm
 from repro_torch.kernels import hist_bincount as t_hb
+from repro_torch.kernels import model_distance as t_md
 
 
 @pytest.fixture(scope="module")
@@ -589,3 +599,83 @@ def test_hist_bincount_kernel_on_card(cuda, m, num_bins):
     assert cuda_build.LAUNCHES["hist_bincount"] == before
     with pytest.raises(ValueError, match="num_bins"):
         t_hb.hist_bincount(idx, w, t_hb.MAX_BINS + 1)
+
+
+# ---------------------------------------------------------------------------
+# the pairwise model distance
+# ---------------------------------------------------------------------------
+
+# both sides sum N products in their own order and the diagonal cancels to
+# near 0: each entry is held to a bound on its sum of absolute terms
+DIST_RTOL_CPU = 1e-6      # plain version against the reference (f32 on the CPU)
+DIST_RTOL_CARD = 1e-5     # kernel against plain: per-thread, warp, block and chunk sums
+
+
+def distance_models(rng, k, n, zero_row=False):
+    x = (rng.standard_normal((k, n)) * rng.choice([0.01, 1.0, 30.0], (k, 1))).astype(np.float32)
+    if zero_row:
+        x[k // 2] = 0.0
+    return x
+
+
+def distance_scale(x) -> np.ndarray:
+    """(k, k) sq_i + sq_j + 2 |x_i . x_j| in f64."""
+    x = np.asarray(x, np.float64)
+    sq = (x * x).sum(1)
+    return sq[:, None] + sq[None, :] + 2.0 * np.abs(x @ x.T)
+
+
+@pytest.mark.parametrize("k,n,zero_row", [(1, 1, False), (2, 1000, False), (5, 16_385, True),
+                                          (16, 8_192, False), (32, 3, True)])
+def test_model_distance_plain_matches_ref_and_pallas(jax_ref, k, n, zero_row):
+    jax, ops, ref, _ = jax_ref
+    x = distance_models(np.random.default_rng(k * 7 + n), k, n, zero_row)
+    got = t_md.model_distance_plain(torch.from_numpy(x))
+    assert got.dtype == torch.float32 and got.shape == (k, k)
+    tol = DIST_RTOL_CPU * distance_scale(x)
+    for want in (ref.model_distance_ref(jax.numpy.asarray(x)),
+                 ops.model_distance(jax.numpy.asarray(x), block_n=8192)):
+        assert (np.abs(got.numpy() - np.asarray(want)) <= tol).all()
+
+
+def test_model_distance_wrapper_launches_nothing_off_the_card():
+    x = torch.from_numpy(distance_models(np.random.default_rng(0), 5, 100))
+    before = cuda_build.LAUNCHES["model_distance"]
+    assert torch.equal(t_md.model_distance(x), t_md.model_distance_plain(x))
+    assert cuda_build.LAUNCHES["model_distance"] == before
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        t_md.model_distance(x.to("meta"))
+    # the kernel's limits, checked before any launch
+    with pytest.raises(ValueError, match="k <= 32"):
+        t_md._check_cuda_args(torch.zeros((33, 10)))
+    with pytest.raises(ValueError, match="k <= 32"):
+        t_md._check_cuda_args(torch.zeros((0, 10)))
+    with pytest.raises(TypeError, match="float32"):
+        t_md._check_cuda_args(torch.zeros((4, 10), dtype=torch.float64))
+    with pytest.raises(ValueError, match="unit column stride"):
+        t_md._check_cuda_args(torch.zeros((10, 4)).T)
+    source = cuda_build.CSRC / "model_distance.cu"
+    cmd = cuda_build.build_command("nvcc", source, "x.so")
+    assert source.exists() and "arch=compute_90a,code=sm_90a" in cmd and cmd[-1] == str(source)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,zero_row", [(1, 1_663_370, False), (5, 1_663_370, True),
+                                          (16, 1_663_370, False), (32, 100_003, True),
+                                          (5, 4_097, False), (7, 1, False), (9, 33, True)])
+def test_model_distance_kernel_on_card(cuda, k, n, zero_row):
+    x = torch.from_numpy(distance_models(np.random.default_rng(k + n), k, n, zero_row)).to(cuda)
+    before = cuda_build.LAUNCHES["model_distance"]
+    got = t_md.model_distance(x)
+    again = t_md.model_distance(x)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["model_distance"] == before + 2
+    assert torch.equal(got, again)                  # a fixed summation order
+    assert torch.equal(got, got.T)
+    want = t_md.model_distance_plain(x)
+    tol = DIST_RTOL_CARD * distance_scale(x.cpu().numpy())
+    assert (np.abs(got.cpu().numpy() - want.cpu().numpy()) <= tol).all()
+    # a strided view: rows of a wider buffer
+    wide = torch.zeros((k, n + 5), device=cuda)
+    wide[:, :n] = x
+    assert torch.equal(t_md.model_distance(wide[:, :n]), got)
