@@ -41,6 +41,16 @@ builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (into
    engine's path (c) with int4, a crash window with selective forwarders
    and sybils, and the model-space screen (``parameter_outlier_scores``,
    the model-distance kernel) on five candidates of a poisoned run's bank;
+   and (2i) the model zoo's dense transformer served at full width:
+   qwen3-0.6b in bf16 from a seeded init, ``prefill`` of 8,192 tokens and
+   ``forward`` of 8,193 (``decode_step``'s logits on the last token within
+   the reference's 2e-2 of forward's in an f32 twin of the same draws; in
+   bf16 prefill's within it, decode's no farther from the f32 forward than
+   bf16's own forward is), 16 ``decode_step``s of a batch of 8
+   against a 32k cache (``decode_32k``'s context, its batch cut from 128 to
+   8), a profiled window of 8 more, and the ``SlotServer`` (4 slots, 8
+   requests of 512 prompt tokens, 32 new each); every attention layer
+   launches its kernel once;
 3. runs a small ``run_dagfl``, a small ``run_dagfl_gossip`` (a lossy ring
    with a partition), a small banked one (the same ring, starved) and the
    same with the int8 codec on the card and on the CPU with the same draws
@@ -52,10 +62,17 @@ builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (into
    simulation): histogram counts and trace records of the card equal the
    CPU's bitwise; (3h) small faulted runs with telemetry on (spoofers on a
    starved banked ring, ticks and events with int4; crash, selective and
-   sybil roles bankless): ledgers, fault reports and telemetry bitwise.
+   sybil roles bankless): ledgers, fault reports and telemetry bitwise;
+   (3i) reduced qwen3-0.6b (f32) and its sliding-window variant with the
+   same parameters: prefill and decode logits within 1e-4, the
+   ``SlotServer``'s tokens, ticks and length equal.
 
-Phase 1 of the merge-winner, chunk-dedup, codec, event-queue, histogram
-and model-distance kernels runs last, after phase 3 (1f also holds
+Phase 1 of the merge-winner, chunk-dedup, codec, event-queue, histogram,
+model-distance and attention kernels runs last, after phase 3 (1i times the
+prefill kernel at 8k, 32k, 32k with an 8k window, gemma-2b's MQA and an odd
+f32 shape, and the decode kernel at the 32k cache, ragged lengths with 0, 1
+and S, gemma-2b's shape and f32, each against its plain version in f32 on
+the same inputs; 1f also holds
 ``bin_index`` on the card against the CPU at every f32 edge and the
 sync-period multiples); the digest check (bank table against one payload,
 bitwise) runs before phase 2c.
@@ -66,6 +83,8 @@ any failure, or where there is no CUDA card or no ``src/repro_torch``.
 """
 from __future__ import annotations
 
+import collections
+import dataclasses
 import json
 import subprocess
 import sys
@@ -81,6 +100,7 @@ SRC = ROOT / "src"
 # NVIDIA H100 SXM data sheet: HBM3 rate, and f32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12     # dense bf16 on the tensor cores
 
 MAIN_P = 1_663_370          # CNNTask() parameters: the paper's full-width CNN
 MAIN_SLOTS = 512            # DagFLConfig.capacity
@@ -117,6 +137,24 @@ SPIN_CYCLES = 40_000_000    # about 20 ms at the H100's 1.98 GHz boost clock
 HIST_BINS = 65              # HistConfig(): 64 log-spaced bins and the overflow bin
 OBS_ITERATIONS = 100        # phase 2g's depth: each path runs twice (telemetry off, on)
 FAULT_ITERATIONS = 100      # phase 2h's depth: each faulted path beside its unfaulted run
+# the served model (2i): qwen3-0.6b's prefill length, the decode batch (the
+# decode_32k shape's 128 cut to 8, 30.1 GB of cache at its 32k context), the
+# steps timed and profiled, and the slot server's load
+MODEL_PREFILL = 8192
+SHAPE_DECODE_32K = 32768
+MODEL_DECODE_BATCH = 8
+MODEL_DECODE_STEPS = 16
+MODEL_PROFILED_STEPS = 8
+SERVE_SLOTS, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 4, 8, 512, 32
+# bf16 decode_step against forward's last logits (2i (a)): the two paths
+# round in other places (matmuls of 1 row against S + 1; the decode kernel's
+# 512-slot splits against the prefill kernel's 64-key blocks), which moved
+# the logits by at most 0.043 and by 0.0067 on average at S = 64, 1,024 and
+# 8,192 (scripts/torch_decode_gap.py); the f32 twin keeps the reference's 2e-2
+BF16_DECODE_ATOL, BF16_DECODE_MEAN = 6e-2, 1e-2
+# attention, kernel vs plain in f32 on the same inputs: relative to each
+# output's sum_j p_j |v_j| (sums in another order), plus a bf16 ulp in bf16
+ATTN_TOL = 1e-5
 # the model distance, kernel vs plain: relative to each entry's sum of
 # absolute terms sq_i + sq_j + 2 |x_i . x_j| (sums in another order; the
 # diagonal cancels to near 0)
@@ -695,14 +733,39 @@ def phase_profile(system="run_dagfl", label=None, **options):
                                        **options)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t)
-    # device events, without the ranges telemetry's annotations
-    # (``repro_torch.net.<entry point>``) mirror onto the device timeline
-    spans = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and not e.name.startswith("repro_torch.")]
-    label = label or system
+    out = {"system": label or system, "iterations": PROFILED_ITERATIONS,
+           **trace_summary(prof, wall_ms)}
+    if "device_ops" not in out:
+        return out
+    spans = device_spans(prof)
+    for kernel in ("fedavg_gather", "gossip_winner", "chunk_dedup", "quant_blocks",
+                   "topk_blocks", "event_pop", "hist_bincount"):
+        us = [end - start for start, end, name in spans if f"{kernel}_kernel" in name]
+        out[f"{kernel}_in_loop"] = {"launches": len(us), "ms_total": sum(us) / 1e3,
+                                    "ms_mean": sum(us) / 1e3 / max(len(us), 1)}
+    batches = res.extras.get("events_processed", 0)
+    if batches:
+        out["event_batches"] = batches
+        out["host_syncs_per_batch"] = out["host_syncs"] / batches
+    return out
+
+
+def device_spans(prof):
+    """(start, end, name) of the device events of a trace, without the
+    ranges telemetry's annotations (``repro_torch.net.<entry point>``)
+    mirror onto the device timeline."""
+    return [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith("repro_torch.")]
+
+
+def trace_summary(prof, wall_ms):
+    """A profiled window: the device's busy and idle share, its operations,
+    the top ten by time, and the host syncs (stream synchronisations the
+    runtime made: each read back of a device value is one)."""
+    spans = device_spans(prof)
     if not spans:
-        return {"system": label, "iterations": PROFILED_ITERATIONS, "wall_ms": wall_ms,
+        return {"wall_ms": wall_ms,
                 "device_busy_ms": "not measured (no device events in the trace)"}
     busy_us, cur_end = 0.0, float("-inf")
     by_name = {}
@@ -711,26 +774,10 @@ def phase_profile(system="run_dagfl", label=None, **options):
         cur_end = max(cur_end, end)
         by_name[name] = by_name.get(name, 0.0) + (end - start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    out = {
-        "system": label, "iterations": PROFILED_ITERATIONS, "wall_ms": wall_ms,
-        "device_busy_ms": busy_us / 1e3, "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
-        "device_ops": len(spans),
-    }
-    for kernel in ("fedavg_gather", "gossip_winner", "chunk_dedup", "quant_blocks",
-                   "topk_blocks", "event_pop", "hist_bincount"):
-        us = [end - start for start, end, name in spans if f"{kernel}_kernel" in name]
-        out[f"{kernel}_in_loop"] = {"launches": len(us), "ms_total": sum(us) / 1e3,
-                                    "ms_mean": sum(us) / 1e3 / max(len(us), 1)}
-    out["top_device_ms"] = {name[:80]: us / 1e3 for name, us in top}
-    # host syncs: stream synchronisations the runtime made (each read back of
-    # a device value is one), over the window and per event batch
-    syncs = sum(1 for e in prof.events() if e.name == "cudaStreamSynchronize")
-    out["host_syncs"] = syncs
-    batches = res.extras.get("events_processed", 0)
-    if batches:
-        out["event_batches"] = batches
-        out["host_syncs_per_batch"] = syncs / batches
-    return out
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms, "device_ops": len(spans),
+            "top_device_ms": {name[:80]: us / 1e3 for name, us in top},
+            "host_syncs": sum(1 for e in prof.events() if e.name == "cudaStreamSynchronize")}
 
 
 def phase_small_agreement():
@@ -2082,6 +2129,381 @@ def phase_small_fault_agreement():
     return out
 
 
+# ---------------------------------------------------------------------------
+# the model zoo's dense transformer: attention kernels (1i), qwen3-0.6b served
+# at full width (2i), card vs CPU (3i)
+# ---------------------------------------------------------------------------
+
+
+def attention_bound(flops, nbytes, dtype):
+    """(ms, what bounds it): the larger of the operations over the peak for
+    ``dtype`` (bf16 tensor cores; f32 outside them, TF32 is off) and the
+    bytes over the memory rate."""
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    ops_s, bytes_s = flops / peak, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s else "bytes")
+
+
+def attention_errors(got, plain, args32, absargs32, dtype, plain_args):
+    """Largest error of the kernel against its plain version run in f32 on
+    the same inputs, checked within ATTN_TOL of sum_j p_j |v_j| (plus one
+    bf16 ulp in bf16); and, in bf16, against the plain version in bf16."""
+    want = plain(*args32)
+    scale = plain(*absargs32)
+    err = (got.float() - want).abs()
+    tol = ATTN_TOL * scale
+    if dtype == torch.bfloat16:
+        tol = tol + bf16_ulp(want)
+    ok = bool((err <= tol).all())
+    out = {"max_abs_err": float(err.max()), "max_err_over_tol": float((err / tol).max())}
+    if dtype == torch.bfloat16:
+        out["max_abs_diff_plain_bf16"] = float((got.float() - plain(*plain_args).float())
+                                               .abs().max())
+    return ok, out
+
+
+def prefill_case(fa, name, B, H, KV, S, hd, dtype, window, gen, reps):
+    """One shape of the prefill kernel on the model's layout ((B, S, H, hd)
+    passed permuted): error against the plain version, the same bits twice,
+    then times of the kernel, the plain version (query blocks of 1024),
+    ``scaled_dot_product_attention`` (causal, or windowed through a boolean
+    mask) and the bound."""
+    F = torch.nn.functional
+    q = (torch.randn((B, S, H, hd), generator=gen, device="cuda") * 0.5).to(dtype).transpose(1, 2)
+    k = (torch.randn((B, S, KV, hd), generator=gen, device="cuda") * 0.5).to(dtype).transpose(1, 2)
+    v = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    got, again = fa.flash_attention(q, k, v, window), fa.flash_attention(q, k, v, window)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f"prefill {name}: two calls differ")
+    ok, errs = attention_errors(got, fa.flash_attention_plain,
+                                (q.float(), k.float(), v.float(), window),
+                                (q.float(), k.float(), v.float().abs(), window),
+                                dtype, (q, k, v, window))
+    check(ok, f"prefill {name}: kernel off its plain version: {errs}")
+    del got, again
+    args = [(q, k, v, window)] * reps
+    ms = device_ms(fa.flash_attention, args, warmup=1)
+    plain_ms = device_ms(fa.flash_attention_plain, args[:max(1, reps // 2)], warmup=1)
+    if window:                         # the same function through an (S, S) boolean mask
+        i, j = torch.arange(S, device="cuda")[:, None], torch.arange(S, device="cuda")[None, :]
+        mask = (j <= i) & (j > i - window)
+        library_ms = device_ms(lambda q, k, v, m: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=m, enable_gqa=True), [(q, k, v, mask)] * reps, warmup=1)
+        del i, j, mask
+    else:
+        library_ms = device_ms(lambda q, k, v, w: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), args, warmup=1)
+    rows = torch.arange(S, dtype=torch.float64)
+    pairs = float(torch.clamp(rows + 1, max=window).sum() if window else (rows + 1).sum())
+    flops = 4.0 * B * H * pairs * hd
+    nbytes = (2 * B * H * S * hd + 2 * B * KV * S * hd) * q.element_size()
+    bound_ms, bound_by = attention_bound(flops, nbytes, dtype)
+    return {"case": name, "B": B, "H": H, "KV": KV, "S": S, "hd": hd, "window": window,
+            "dtype": str(dtype).removeprefix("torch."), **errs, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "tflops_achieved": flops / ms / 1e9, "reps": reps}
+
+
+def decode_case(fa, name, B, H, KV, S, hd, dtype, lengths, gen, reps):
+    """One shape of the decode kernel against an (B, S, KV, hd) cache: error
+    against the plain version, the same bits twice, then times of the
+    kernel, the plain version, ``scaled_dot_product_attention`` with a length
+    mask (rows of length 0 excluded: its softmax of nothing is NaN) and the
+    byte bound of the slots this run's lengths read."""
+    F = torch.nn.functional
+    q = (torch.randn((B, H, hd), generator=gen, device="cuda") * 0.5).to(dtype)
+    k = torch.randn((B, S, KV, hd), generator=gen, device="cuda").mul_(0.3).to(dtype)
+    v = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    got, again = fa.decode_attention(q, k, v, lens), fa.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f"decode {name}: two calls differ")
+    ok, errs = attention_errors(got, fa.decode_attention_plain,
+                                (q.float(), k.float(), v.float(), lens),
+                                (q.float(), k.float(), v.float().abs(), lens),
+                                dtype, (q, k, v, lens))
+    check(ok, f"decode {name}: kernel off its plain version: {errs}")
+    args = [(q, k, v, lens)] * reps
+    ms = device_ms(fa.decode_attention, args)
+    plain_ms = device_ms(fa.decode_attention_plain, args[:max(1, reps // 4)], warmup=1)
+    library_ms = None
+    if 0 not in lengths:
+        mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+        library_ms = device_ms(lambda q, k, v, m: F.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), attn_mask=m, enable_gqa=True),
+            [(q, k, v, mask)] * max(1, reps // 4), warmup=1)
+    read = sum(length or S for length in lengths)          # a row of length 0 reads all S
+    nbytes = (2 * read * KV * hd + 2 * B * H * hd) * q.element_size() + 4 * B
+    flops = 4.0 * sum(lengths) * (H // KV) * KV * hd
+    bound_ms, bound_by = attention_bound(flops, nbytes, dtype)
+    return {"case": name, "B": B, "H": H, "KV": KV, "S": S, "hd": hd,
+            "lengths": lengths if len(set(lengths)) > 1 else f"{lengths[0]} x {B}",
+            "dtype": str(dtype).removeprefix("torch."), **errs, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "gb_per_s_achieved": nbytes / ms / 1e6, "reps": reps}
+
+
+def phase_attention_kernels(fa):
+    """Phase 1i: both attention kernels against their plain versions at the
+    served model's shapes (qwen3-0.6b: H 16, KV 8, hd 128, bf16), the long
+    and windowed lengths, gemma-2b's MQA at hd 256, and odd f32 shapes."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(20)
+    prefill = [
+        prefill_case(fa, "main", 1, 16, 8, 8192, 128, torch.bfloat16, 0, gen, reps=10),
+        prefill_case(fa, "long_32k", 1, 16, 8, 32768, 128, torch.bfloat16, 0, gen, reps=2),
+        prefill_case(fa, "window_32k", 1, 16, 8, 32768, 128, torch.bfloat16, 8192, gen, reps=2),
+        prefill_case(fa, "gemma_2b", 1, 8, 1, 4096, 256, torch.bfloat16, 0, gen, reps=10),
+        prefill_case(fa, "odd_f32", 1, 10, 2, 1000, 64, torch.float32, 0, gen, reps=10),
+    ]
+    torch.cuda.empty_cache()
+    decode = [
+        decode_case(fa, "main", 8, 16, 8, 32768, 128, torch.bfloat16, [32768 - 16] * 8, gen,
+                    reps=40),
+        decode_case(fa, "ragged", 8, 16, 8, 32768, 128, torch.bfloat16,
+                    [0, 1, 32768, 17, 4095, 20000, 32767, 513], gen, reps=20),
+        decode_case(fa, "gemma_2b", 8, 8, 1, 32768, 256, torch.bfloat16, [32768 - 16] * 8,
+                    gen, reps=40),
+        decode_case(fa, "odd_f32", 3, 10, 2, 1000, 64, torch.float32, [1000, 0, 333], gen,
+                    reps=40),
+    ]
+    torch.cuda.empty_cache()
+    for bad in ((torch.zeros((1, 4, 8, 48), device="cuda"),) * 3,
+                (torch.zeros((1, 4, 8, 64), device="cuda", dtype=torch.float16),) * 3):
+        try:
+            fa.flash_attention(*bad)
+            check(False, "a shape or dtype the kernel does not take was not refused")
+        except ValueError:
+            pass
+    return {"prefill": prefill, "decode": decode}
+
+
+def check_attention_launches(what, launches, flash, decode):
+    got = (launches.get("flash_attention", 0), launches.get("decode_attention", 0))
+    check(got == (flash, decode), f"{what}: attention launches {got}, expected {(flash, decode)}")
+
+
+def timed(fn, *args, **kwargs):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def phase_model_path(cuda_build):
+    """Phase 2i: qwen3-0.6b at full width in bf16 from a seeded init:
+    (a) ``prefill`` of MODEL_PREFILL tokens and ``forward`` of one more, in
+    bf16 and in an f32 twin of the same draws: in f32 (the precision of the
+    reference's test) ``decode_step`` must give forward's last logits within
+    the reference's 2e-2; in bf16 prefill's must, and decode's within
+    BF16_DECODE_ATOL (+ 2e-2 |logit|), BF16_DECODE_MEAN on average; (b)
+    MODEL_DECODE_STEPS ``decode_step``s of a batch of 8 against a 32k cache
+    filled from a seeded generator; (c) the ``SlotServer``; (d) a profiled
+    window of decode steps. Each attention layer launches its kernel once."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import Request, SlotServer, serve
+    from repro_torch.models import build_model
+
+    torch.cuda.empty_cache()
+    cfg = get_arch("qwen3-0.6b")
+    L, V = cfg.num_layers, cfg.vocab_size
+    model = build_model(cfg)
+    params, init_s = timed(model.init, 0, device="cuda")
+    leaves = param_leaves(params)
+    n_params = sum(p.numel() for _, p in leaves)
+    norms = ("ln1", "ln2", "final_norm", "q_norm", "k_norm")
+    n_matrices = sum(p.numel() for path, p in leaves if not set(path) & set(norms))
+    check(n_matrices == cfg.param_count(),       # the closed form counts no norm scales
+          f"{n_matrices} weights outside the norms, not {cfg.param_count()}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(20)
+    out = {"arch": cfg.name, "dtype": cfg.dtype, "layers": L, "params": n_params,
+           "params_in_matrices": n_matrices, "init_s": init_s}
+    total = collections.Counter()
+
+    # (a) prefill, forward and the first decode step, in bf16 and in an f32
+    # twin of the same draws (the bf16 weights are these rounded)
+    S = MODEL_PREFILL
+    tokens = torch.randint(0, V, (1, S + 1), generator=gen, device="cuda")
+    model.prefill(params, tokens[:, :S], cache_len=S + 4)         # warm-up (allocator)
+    runs = {}
+    for label, m, p in (("bf16", model, params),
+                        ("f32", build_model(dataclasses.replace(cfg, dtype="float32")), None)):
+        p = p if p is not None else m.init(0, device="cuda")
+        cuda_build.LAUNCHES.clear()
+        (last, cache), prefill_s = timed(m.prefill, p, tokens[:, :S], cache_len=S + 4)
+        check_attention_launches(f"{label} prefill", cuda_build.LAUNCHES, L, 0)
+        total.update(cuda_build.LAUNCHES)
+        cuda_build.LAUNCHES.clear()
+        (logits, _), forward_s = timed(m.forward, p, tokens)
+        check_attention_launches(f"{label} forward", cuda_build.LAUNCHES, L, 0)
+        total.update(cuda_build.LAUNCHES)
+        cuda_build.LAUNCHES.clear()
+        (step, _), decode_s = timed(m.decode_step, p, tokens[:, S:], cache)
+        check_attention_launches(f"{label} decode_step", cuda_build.LAUNCHES, 0, L)
+        total.update(cuda_build.LAUNCHES)
+        check(bool(torch.isfinite(logits).all()) and logits.shape == (1, S + 1, V),
+              f"{label} forward logits {tuple(logits.shape)} not finite")
+        runs[label] = {"prefill_s": prefill_s, "forward_s": forward_s, "decode_step_s": decode_s,
+                       "forward": logits[0, -1].float(), "prefill": last[0, 0].float(),
+                       "forward_prev": logits[0, -2].float(), "decode": step[0, 0].float()}
+        del logits, cache, last, step, p, m
+    bf, fp = runs["bf16"], runs["f32"]
+
+    def max_err(a, b):
+        return float((a - b).abs().max())
+
+    def within(got, want, atol=2e-2):  # the reference's decode==forward bound at 2e-2
+        return bool(((got - want).abs() <= atol + 2e-2 * want.abs()).all())
+
+    # the reference's test, at full width in its own precision (f32)
+    check(within(fp["decode"], fp["forward"]),
+          f"f32: decode_step off forward by {max_err(fp['decode'], fp['forward'])}")
+    check(within(fp["prefill"], fp["forward_prev"]),
+          f"f32: prefill off forward by {max_err(fp['prefill'], fp['forward_prev'])}")
+    check(within(bf["prefill"], bf["forward_prev"]),
+          f"bf16: prefill off forward by {max_err(bf['prefill'], bf['forward_prev'])}")
+    bf_mean = float((bf["decode"] - bf["forward"]).abs().mean())
+    check(within(bf["decode"], bf["forward"], BF16_DECODE_ATOL) and bf_mean <= BF16_DECODE_MEAN,
+          f"bf16: decode_step off forward by {max_err(bf['decode'], bf['forward'])}, "
+          f"{bf_mean} on average")
+    out["a_prefill_forward_decode"] = {
+        "prefill_tokens": S, "forward_tokens": S + 1,
+        **{f"{label}_{key}": runs[label][key] for label in runs
+           for key in ("prefill_s", "forward_s", "decode_step_s")},
+        "bf16_prefill_tokens_per_s": S / bf["prefill_s"],
+        "f32_decode_vs_forward_max_abs_err": max_err(fp["decode"], fp["forward"]),
+        "f32_prefill_vs_forward_max_abs_err": max_err(fp["prefill"], fp["forward_prev"]),
+        "bf16_prefill_vs_forward_max_abs_err": max_err(bf["prefill"], bf["forward_prev"]),
+        "bf16_decode_vs_forward_max_abs_err": max_err(bf["decode"], bf["forward"]),
+        "bf16_decode_vs_forward_mean_abs_err": bf_mean,
+        "bf16_decode_vs_f32_forward_max_abs_err": max_err(bf["decode"], fp["forward"]),
+        "bf16_forward_vs_f32_forward_max_abs_err": max_err(bf["forward"], fp["forward"]),
+        "bf16_decode_argmax_is_forward_argmax":
+            int(bf["decode"].argmax()) == int(bf["forward"].argmax()),
+        "forward_logit_abs_max": float(bf["forward"].abs().max()),
+        "tolerance": "2e-2 + 2e-2 |logit|; bf16 decode: "
+                     f"{BF16_DECODE_ATOL} + 2e-2 |logit|, mean {BF16_DECODE_MEAN}"}
+    del runs, bf, fp
+    torch.cuda.empty_cache()
+
+    # (b) decode steps of a batch of 8 against a 32k cache
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()    # the params and what earlier phases hold
+    B, ctx = MODEL_DECODE_BATCH, SHAPE_DECODE_32K
+    cache = model.init_cache(B, ctx, length=ctx - MODEL_DECODE_STEPS, device="cuda")
+    cache["stack"].k.normal_(generator=gen)
+    cache["stack"].v.normal_(generator=gen)
+    tok = torch.randint(0, V, (B, 1), generator=gen, device="cuda")
+    step_ms = []
+    cuda_build.LAUNCHES.clear()
+    for _ in range(MODEL_DECODE_STEPS):
+        (step, cache), s = timed(model.decode_step, params, tok, cache)
+        tok = torch.argmax(step[:, 0], dim=-1, keepdim=True)
+        step_ms.append(1e3 * s)
+    check_attention_launches("decode steps", cuda_build.LAUNCHES, 0, L * MODEL_DECODE_STEPS)
+    total.update(cuda_build.LAUNCHES)
+    check(bool(torch.isfinite(step).all()) and step.shape == (B, 1, V),
+          "decode logits not finite")
+    check(cache["stack"].length == ctx, f"cache length {cache['stack'].length}")
+    steady = step_ms[1:]
+    out["b_decode_32k"] = {
+        "batch": B, "context": ctx, "cache_bytes": 2 * cache["stack"].k.numel() * 2,
+        "steps": MODEL_DECODE_STEPS, "step_ms": step_ms,
+        "ms_per_step_steady": sum(steady) / len(steady),
+        "tokens_per_s_steady": B * 1e3 * len(steady) / sum(steady),
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "allocated_before_bytes": held_before}
+
+    # (d) a profiled window of decode steps at the full context
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(MODEL_PROFILED_STEPS):
+            step, cache = model.decode_step(params, tok, cache)
+            tok = torch.argmax(step[:, 0], dim=-1, keepdim=True)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t)
+    out["d_profile_decode"] = {"steps": MODEL_PROFILED_STEPS, **trace_summary(prof, wall_ms)}
+    del cache, step, prof
+    torch.cuda.empty_cache()
+
+    # (c) the slot server
+    slots, n_req, prompt_len, max_new = SERVE_SLOTS, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW
+    rng = np.random.default_rng(20)
+    queue = [Request(i, rng.integers(0, V, prompt_len).astype(np.int32), max_new)
+             for i in range(n_req)]
+    server = SlotServer(cfg, params, slots, prompt_len + max_new + 2)
+    cuda_build.LAUNCHES.clear()
+    ticks, wall_s = timed(serve, server, queue)
+    check(all(r.done and len(r.out) == max_new for r in queue), "a request did not complete")
+    check_attention_launches("SlotServer", cuda_build.LAUNCHES, L * n_req, L * ticks)
+    total.update(cuda_build.LAUNCHES)
+    out["c_slot_server"] = {"slots": slots, "requests": n_req, "prompt_tokens": prompt_len,
+                            "new_tokens": max_new, "ticks": ticks, "wall_s": wall_s,
+                            "tokens_out": sum(len(r.out) for r in queue),
+                            "tokens_per_s": sum(len(r.out) for r in queue) / wall_s,
+                            "final_length": server.length}
+    out["launches"] = dict(total)
+    return out
+
+
+def param_leaves(tree, path=()):
+    """(key path, tensor) of every tensor of a nested dict of parameters."""
+    if isinstance(tree, dict):
+        return [leaf for key, sub in tree.items() for leaf in param_leaves(sub, path + (key,))]
+    return [(path, tree)]
+
+
+def phase_small_model_agreement():
+    """Phase 3i: reduced qwen3-0.6b (f32) and its sliding-window variant, the
+    same parameters on the card and on the CPU: prefill and decode logits
+    within 1e-4, and the ``SlotServer``'s tokens, ticks and length equal."""
+    from repro_torch.configs import get_arch, long_context_variant
+    from repro_torch.launch.serve import Request, SlotServer, serve
+    from repro_torch.models import build_model
+
+    out = {}
+    base = get_arch("qwen3-0.6b")
+    for label, cfg in (("full", base.reduced()),
+                       ("sliding_window", long_context_variant(base).reduced())):
+        model = build_model(cfg)
+        cpu = model.init(0, device="cpu")
+        card = tree_to(cpu, "cuda")
+        tokens = np.random.default_rng(21).integers(0, cfg.vocab_size, (2, 100 + 4))
+        caches = {device: model.prefill(params, tokens[:, :100], cache_len=110)
+                  for device, params in (("cuda", card), ("cpu", cpu))}
+        worst = float((caches["cuda"][0].cpu() - caches["cpu"][0]).abs().max())
+        cg, cc = caches["cuda"][1], caches["cpu"][1]
+        for step in range(4):
+            tok = tokens[:, 100 + step:101 + step]
+            lg, cg = model.decode_step(card, tok, cg)
+            lc, cc = model.decode_step(cpu, tok, cc)
+            worst = max(worst, float((lg.cpu() - lc).abs().max()))
+        check(worst <= 1e-4, f"3i {label}: card and CPU logits differ by {worst}")
+        outs = {}
+        for device, params in (("cuda", card), ("cpu", cpu)):
+            rng = np.random.default_rng(22)
+            queue = [Request(i, rng.integers(0, cfg.vocab_size, 9).astype(np.int32), 6)
+                     for i in range(5)]
+            server = SlotServer(cfg, params, 2, 20)
+            outs[device] = (serve(server, queue), [r.out for r in queue], server.length)
+        check(outs["cuda"] == outs["cpu"], f"3i {label}: SlotServer differs: {outs}")
+        out[label] = {"window": cfg.window_size if cfg.attention == "sliding_window" else 0,
+                      "logits_max_abs_diff": worst, "server_ticks": outs["cuda"][0],
+                      "server_tokens": sum(len(o) for o in outs["cuda"][1])}
+    return out
+
+
+def tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
 def nvidia_smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2102,7 +2524,8 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.device import resolve_device
     from repro_torch.kernels import chunk_transfer, cuda_build, delta_codec, event_pop, fedavg
-    from repro_torch.kernels import gossip_merge, hist_bincount, model_distance
+    from repro_torch.kernels import flash_attention, gossip_merge, hist_bincount
+    from repro_torch.kernels import model_distance
 
     resolve_device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -2161,6 +2584,10 @@ def main() -> int:
         fault_paths = phase_fault_main_path(cuda_build)
         print(json.dumps({"fault_main_path": fault_paths}))
         print(f"[phase 2h] fault injection paths: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        model_path = phase_model_path(cuda_build)
+        print(json.dumps({"model_main_path": model_path}))
+        print(f"[phase 2i] qwen3-0.6b served: {time.perf_counter() - t:.1f} s")
         print(json.dumps({"profile_events": phase_profile(
             "run_dagfl_gossip",
             label="run_dagfl_gossip(engine=events, 1 Mbit/s, 0.5 s links, int4)",
@@ -2189,6 +2616,9 @@ def main() -> int:
         t = time.perf_counter()
         print(json.dumps({"small_fault_agreement": phase_small_fault_agreement()}))
         print(f"[phase 3h] fault injection, card against CPU: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        print(json.dumps({"small_model_agreement": phase_small_model_agreement()}))
+        print(f"[phase 3i] the dense model, card against CPU: {time.perf_counter() - t:.1f} s")
         gossip_cases = phase_gossip_kernel(gossip_merge)
         print(json.dumps({"gossip_cases": gossip_cases}))
         dedup_cases = phase_dedup_kernel(chunk_transfer)
@@ -2210,6 +2640,10 @@ def main() -> int:
         distance_cases = phase_distance_kernel(model_distance)
         print(json.dumps({"model_distance_cases": distance_cases}))
         print(f"[phase 1h] model_distance vs plain: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        attention_cases = phase_attention_kernels(flash_attention)
+        print(json.dumps({"attention_cases": attention_cases}))
+        print(f"[phase 1i] attention kernels vs plain: {time.perf_counter() - t:.1f} s")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2329,6 +2763,24 @@ def main() -> int:
         "bound_by": distance_main["bound_by"],
         "library_ms": distance_main["library_ms"],   # torch.cdist (the root), via a product
     })
+    for name, step, line in (("flash_attention", "prefill", 87),
+                             ("decode_attention", "decode", 180)):
+        cases = attention_cases[step]
+        main_case = next(c for c in cases if c["case"] == "main")
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": f"src/repro/kernels/flash_attention.py:{line}",
+            "launches": model_path["launches"].get(name, 0),
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": main_case["ms"],
+            "kernel_ms": main_case["ms"],
+            "plain_ms": main_case["plain_ms"],
+            "bound_ms": main_case["bound_ms"],
+            "bound_by": main_case["bound_by"],
+            "library_ms": main_case["library_ms"],   # scaled_dot_product_attention
+        })
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

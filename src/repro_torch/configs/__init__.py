@@ -1,1 +1,23 @@
-"""Configs of the port: the DAG-FL deployment and the paper tasks."""
+"""Configs of the port: the model zoo, the DAG-FL deployment and the paper tasks."""
+from repro_torch.configs.base import DagFLConfig, ModelConfig, SHAPES, ShapeSpec
+from repro_torch.configs.registry import (
+    ARCHS,
+    POD_GRANULARITY,
+    get_arch,
+    get_shape,
+    list_archs,
+    long_context_variant,
+)
+
+__all__ = [
+    "DagFLConfig",
+    "ModelConfig",
+    "SHAPES",
+    "ShapeSpec",
+    "ARCHS",
+    "POD_GRANULARITY",
+    "get_arch",
+    "get_shape",
+    "list_archs",
+    "long_context_variant",
+]

@@ -1,0 +1,246 @@
+"""Causal GQA prefill attention and one-token GQA decode attention: kernels,
+plain versions, dispatchers.
+
+Replace the TPU kernels ``repro/kernels/flash_attention.py::flash_attention_pallas``
+(``_flash_kernel``) and ``decode_attention_pallas`` (``_decode_kernel``).
+Both compute what the Pallas kernels compute: scores ``q . k`` in f32 scaled
+by ``1/sqrt(hd)``, masked entries at -1e30, probabilities in f32, output in
+q's dtype; head ``h`` reads KV head ``h // (H / KV)``.
+
+- ``flash_attention(q, k, v, window)``: q ``(B, H, S, hd)``, k and v
+  ``(B, KV, S, hd)``; causal, and with ``window > 0`` key ``j`` is seen by
+  query ``i`` only when ``i - window < j <= i``. Returns ``(B, H, S, hd)``.
+- ``decode_attention(q, k, v, lengths)``: q ``(B, H, hd)``, k and v the
+  cache ``(B, S, KV, hd)``, lengths ``(B,)`` int32; row ``b`` attends to
+  slots ``[0, lengths[b])``. Returns ``(B, H, hd)``.
+
+For CUDA tensors the dispatchers launch ``repro_torch/csrc/flash_attention.cu``
+(f32 or bf16, ``hd`` in {64, 128, 256}, any ``H / KV``, any ``S``; anything
+else raises ``ValueError``; a failed build or launch raises). They read the
+strides of q, k and v, so the model passes its ``(B, S, H, hd)`` tensors
+permuted, without a copy, as long as ``hd`` is the unit-stride axis and the
+tensors are 16-byte aligned; otherwise the wrapper copies them contiguous
+first. The prefill output is laid out ``(B, S, H, hd)`` in memory and
+returned as its ``(B, H, S, hd)`` view, so the model's transpose back is
+free. For CPU tensors the dispatchers take the plain versions:
+
+- ``flash_attention_plain`` ports ``ref.mqa_attention_ref`` (scores in q's
+  dtype, then f32; a softmax in f32; probabilities cast to q's dtype) in
+  blocks of ``CHUNK_Q`` query rows, so that a 32k-token call fits in memory:
+  that is the reference model's ``models/attention.py::chunked_sdpa``;
+- ``decode_attention_plain`` ports ``ref.decode_attention_ref``. A row of
+  length 0 gives the mean of v over all S slots (the reference's softmax of
+  a row that is all -1e30); the kernel does the same, where the Pallas
+  kernel returns 0.
+
+The kernels round nothing in between, so in bf16 they are held against the
+plain version run in f32 on the same bf16 inputs.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import cuda_build
+
+NEG_INF = -1e30
+CHUNK_Q = 1024          # query rows per block of the plain prefill
+HEAD_DIMS = (64, 128, 256)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def _root_hd(hd: int, device) -> torch.Tensor:
+    """sqrt(f32(hd)) as a device tensor: the reference divides by it, and a
+    division by a Python scalar on the card is a reciprocal multiply."""
+    return torch.full((), float(hd), dtype=torch.float32, device=device).sqrt()
+
+
+def flash_attention_block_plain(q, k, v, q_lo: int, window: int = 0) -> torch.Tensor:
+    """Query rows ``[q_lo, q_lo + bq)`` of q ``(B, H, bq, hd)`` against the
+    keys ``[k_lo, q_lo + bq)`` of k and v ``(B, KV, S, hd)`` that any of them
+    may see (the rest of a row is exactly 0 after the softmax)."""
+    B, H, bq, hd = q.shape
+    KV = k.shape[1]
+    G = H // KV
+    k_hi = q_lo + bq
+    k_lo = max(0, q_lo - window + 1) if window else 0
+    kb, vb = k[:, :, k_lo:k_hi], v[:, :, k_lo:k_hi]
+    qg = q.reshape(B, KV, G * bq, hd)
+    scores = (qg @ kb.transpose(-1, -2)).float() / _root_hd(hd, q.device)
+    scores = scores.view(B, KV, G, bq, k_hi - k_lo)
+    i = torch.arange(q_lo, k_hi, device=q.device)[:, None]
+    j = torch.arange(k_lo, k_hi, device=q.device)[None, :]
+    ok = j <= i
+    if window:
+        ok = ok & (j > i - window)
+    scores = torch.where(ok, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = probs.view(B, KV, G * bq, k_hi - k_lo) @ vb
+    return out.view(B, H, bq, hd)
+
+
+def flash_attention_plain(q, k, v, window: int = 0, block_q: int = CHUNK_Q) -> torch.Tensor:
+    """Causal (optionally sliding-window) GQA attention in PyTorch, ``block_q``
+    query rows at a time: the kernel's oracle and the CPU path."""
+    B, H, S, hd = q.shape
+    out = torch.empty((B, H, S, hd), dtype=q.dtype, device=q.device)
+    for q_lo in range(0, S, block_q):
+        q_hi = min(S, q_lo + block_q)
+        out[:, :, q_lo:q_hi] = flash_attention_block_plain(q[:, :, q_lo:q_hi], k, v, q_lo,
+                                                           window)
+    return out
+
+
+def decode_attention_plain(q, k, v, lengths) -> torch.Tensor:
+    """One query per row against an S-slot cache, the first ``lengths[b]``
+    slots valid: ``ref.decode_attention_ref`` in PyTorch."""
+    B, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, KV, G, hd)
+    scores = torch.einsum("bkgd,bskd->bkgs", qg, k).float() / _root_hd(hd, q.device)
+    valid = torch.arange(S, device=q.device)[None, :] < lengths.to(q.device)[:, None]
+    scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bkgs,bskd->bkgd", probs, v).reshape(B, H, hd)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = cuda_build.load_library("flash_attention.cu")
+    i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+    lib.flash_attention.argtypes = [
+        p, p, p, p,                  # q, k, v, out
+        i, i, i, i, i, i, i,         # dtype, B, H, KV, S, hd, window
+        ll, ll, ll,                  # q strides (b, h, s)
+        ll, ll, ll,                  # k strides (b, kv, s)
+        ll, ll, ll,                  # v strides (b, kv, s)
+        ll, ll, ll,                  # out strides (b, h, s)
+        i, p,                        # device, stream
+    ]
+    lib.flash_attention.restype = i
+    lib.decode_attention.argtypes = [
+        p, p, p, p, p, p,            # q, k, v, lengths, out, workspace
+        i, i, i, i, i, i,            # dtype, B, H, KV, S, hd
+        ll, ll,                      # q strides (b, h)
+        ll, ll, ll,                  # k strides (b, s, kv)
+        ll, ll, ll,                  # v strides (b, s, kv)
+        ll, ll,                      # out strides (b, h)
+        i, p,                        # device, stream
+    ]
+    lib.decode_attention.restype = i
+    lib.decode_attention_workspace.argtypes = [i, i, i, i, i]
+    lib.decode_attention_workspace.restype = ll
+    lib.flash_attention_error_string.argtypes = [i]
+    lib.flash_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` if the kernel can read it in place: unit stride on the last
+    axis, 16-byte aligned, every other stride a whole number of 16-byte
+    vectors. Otherwise a contiguous copy (a fresh, aligned allocation)."""
+    vec = 16 // x.element_size()
+    if (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+            and all(s % vec == 0 for s in x.stride()[:-1])):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def _check(name, q, k, v, q_dims, kv_dims):
+    if q.dim() != q_dims or k.dim() != kv_dims or v.shape != k.shape:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)} are not the kernel's layouts")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{name}: q, k and v must all be float32 or bfloat16, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    hd = q.shape[-1]
+    if hd not in HEAD_DIMS or k.shape[-1] != hd:
+        raise ValueError(f"{name}: head dim must be one of {HEAD_DIMS} on both sides, got "
+                         f"{hd} and {k.shape[-1]}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"{name}: q, k and v lie on {q.device}, {k.device}, {v.device}")
+
+
+def _raise_on(lib, name: str, code: int) -> None:
+    if code != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{lib.flash_attention_error_string(code).decode()} ({code})")
+
+
+def flash_attention(q, k, v, window: int = 0) -> torch.Tensor:
+    """Causal (optionally sliding-window) GQA attention, q ``(B, H, S, hd)``,
+    k and v ``(B, KV, S, hd)``: the kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {q.device}")
+    _check("flash_attention", q, k, v, 4, 4)
+    B, H, S, hd = q.shape
+    KV = k.shape[1]
+    if k.shape[:3] != (B, KV, S) or KV < 1 or H % KV or S < 1 or window < 0:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k {tuple(k.shape)} are not "
+                         f"(B, H, S, hd) and (B, KV, S, hd) with H a multiple of KV, or the "
+                         f"window {window} is negative")
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
+    lib = _library()
+    code = lib.flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        DTYPES[q.dtype], B, H, KV, S, hd, int(window),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        q.device.index or 0, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _raise_on(lib, "flash_attention", code)
+    cuda_build.LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def decode_attention(q, k, v, lengths) -> torch.Tensor:
+    """One-token GQA attention, q ``(B, H, hd)`` against the cache k, v
+    ``(B, S, KV, hd)`` with ``lengths`` ``(B,)`` int32 valid slots a row
+    (``0 <= lengths <= S``, the caller's contract, not checked on the card:
+    that would be a sync): the kernel for CUDA tensors, the plain version
+    for CPU tensors."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k, v, lengths)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention runs on cuda or cpu tensors, not {q.device}")
+    _check("decode_attention", q, k, v, 3, 4)
+    B, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    if k.shape[0] != B or KV < 1 or H % KV or S < 1:
+        raise ValueError(f"decode_attention: q {tuple(q.shape)} and k {tuple(k.shape)} are not "
+                         f"(B, H, hd) and (B, S, KV, hd) with H a multiple of KV")
+    if (lengths.shape != (B,) or lengths.dtype != torch.int32
+            or lengths.device != q.device or not lengths.is_contiguous()):
+        raise ValueError(f"decode_attention: lengths must be a contiguous ({B},) int32 tensor "
+                         f"on {q.device}, got {tuple(lengths.shape)} {lengths.dtype} on "
+                         f"{lengths.device}")
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    lib = _library()
+    out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
+    work = torch.empty((lib.decode_attention_workspace(B, H, KV, S, hd),),
+                       dtype=torch.float32, device=q.device)
+    code = lib.decode_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        work.data_ptr(), DTYPES[q.dtype], B, H, KV, S, hd,
+        *q.stride()[:2], *k.stride()[:3], *v.stride()[:3], *out.stride()[:2],
+        q.device.index or 0, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _raise_on(lib, "decode_attention", code)
+    cuda_build.LAUNCHES["decode_attention"] += 1
+    return out

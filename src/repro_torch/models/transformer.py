@@ -1,0 +1,219 @@
+"""The model zoo's dense decoder-only transformer on PyTorch.
+
+The port of ``repro.models.transformer`` for the dense family (GQA/MQA
+attention, full or sliding-window, QK-norm, QKV bias; rmsnorm, layernorm or
+OLMo's non-parametric layernorm; swiglu, geglu or gelu MLP; tied or untied
+head). Layer parameters are stacked ``(L, ...)`` tensors, walked by a Python
+loop (the reference scans them). Every attention layer goes through the
+hand-written kernels of ``kernels/flash_attention.py``: ``forward`` and
+``prefill`` through ``flash_attention``, ``decode_step`` through
+``decode_attention`` (one launch each a layer on the card).
+
+The other families raise ``NotImplementedError`` naming their ROADMAP item,
+and so do ``loss`` and ``train_step``, which need ``optim/`` and a backward
+kernel.
+
+Caches are ``{"prefix": [], "stack": KVCache(k, v, length)}`` with k and v
+``(L, B, S, KV, hd)`` written in place by ``decode_step`` and ``length`` a
+host int (the reference stacks one length a layer, all equal).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn_lib
+from repro_torch.models.attention import KVCache
+from repro_torch.models.layers import (
+    dense_init,
+    embed_init,
+    mlp_apply,
+    mlp_init,
+    norm_apply,
+    norm_init,
+)
+
+TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def unported_reason(cfg: ModelConfig):
+    """Why the port cannot build ``cfg`` yet (its ROADMAP item), or None."""
+    if cfg.family == "rwkv":
+        return ("the RWKV family (models/rwkv.py, Model._run_rwkv, the RWKV state cache) "
+                "is ported with the wkv kernel B.11 in the next slice (ROADMAP A.13, part 1)")
+    if cfg.family == "hybrid":
+        return "the hybrid family (Mamba2 + shared attention) waits for ROADMAP A.13, part 2"
+    if cfg.is_moe():
+        return "the MoE family waits for ROADMAP A.13, part 2"
+    if cfg.attention == "mla":
+        return "MLA attention waits for ROADMAP A.13, part 2"
+    if cfg.frontend_tokens or cfg.family in ("audio", "vlm"):
+        return "audio and vision frontends wait for ROADMAP A.13, part 2"
+    if cfg.attention not in ("full", "sliding_window"):
+        return f"attention {cfg.attention!r} is not ported"
+    return None
+
+
+def _tf_block_apply(cfg: ModelConfig, p: dict, x, positions, mode: str, cache, cache_len: int):
+    h = norm_apply(cfg.norm, p["ln1"], x)
+    if mode == "decode":
+        a, new_cache = attn_lib.attn_decode_step(cfg, p["attn"], h, cache)
+    else:
+        a, new_cache = attn_lib.attn_forward(cfg, p["attn"], h, positions,
+                                             return_cache=(mode == "prefill"),
+                                             cache_len=cache_len)
+    x = x + a
+    h = norm_apply(cfg.norm, p["ln2"], x)
+    return x + mlp_apply(cfg, p["mlp"], h), new_cache
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of stacked ``(L, ...)`` parameters: views, no copies."""
+    if isinstance(tree, dict):
+        return {name: _layer(sub, i) for name, sub in tree.items()}
+    return tree[i]
+
+
+@dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+
+    def __post_init__(self):
+        reason = unported_reason(self.cfg)
+        if reason:
+            raise NotImplementedError(f"{self.cfg.name}: {reason}")
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return TORCH_DTYPES[self.cfg.dtype]
+
+    # ---------------- init ------------------------------------------------
+    def init(self, seed: int = 0, device="cuda") -> Dict[str, Any]:
+        """Synthetic parameters, drawn on ``device`` from a generator seeded
+        with ``seed``."""
+        cfg, dtype = self.cfg, self.dtype
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        L = cfg.num_layers
+        params: Dict[str, Any] = {
+            "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype, dev),
+            "final_norm": norm_init(cfg.norm, cfg.d_model, dtype, dev),
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dtype, dev)
+        params["layers"] = {
+            "ln1": norm_init(cfg.norm, cfg.d_model, dtype, dev, L),
+            "ln2": norm_init(cfg.norm, cfg.d_model, dtype, dev, L),
+            "attn": attn_lib.attn_init(gen, cfg, dtype, dev, L),
+            "mlp": mlp_init(gen, cfg, dtype, dev, L),
+        }
+        return params
+
+    # ---------------- embeddings / head -----------------------------------
+    def _embed(self, params, tokens):
+        return params["embed"][tokens]
+
+    def _head(self, params, x):
+        x = norm_apply(self.cfg.norm, params["final_norm"], x)
+        if self.cfg.tie_embeddings:
+            return x @ params["embed"].T
+        return x @ params["lm_head"]
+
+    # ---------------- the stack -------------------------------------------
+    def _run_layers(self, params, x, positions, mode: str, cache, cache_len: int):
+        return self._run_tf(params, x, positions, mode, cache, cache_len)
+
+    def _run_tf(self, params, x, positions, mode, cache, cache_len):
+        """Returns (x, new cache or None, aux loss 0)."""
+        layers = params["layers"]
+        caches = []
+        for i in range(self.cfg.num_layers):
+            lc = None
+            if mode == "decode":
+                stack = cache["stack"]
+                lc = KVCache(stack.k[i], stack.v[i], stack.length)
+            x, nc = _tf_block_apply(self.cfg, _layer(layers, i), x, positions, mode, lc,
+                                    cache_len)
+            caches.append(nc)
+        new_cache = None
+        if mode == "decode":
+            stack = cache["stack"]
+            new_cache = {"prefix": [], "stack": KVCache(stack.k, stack.v, stack.length + 1)}
+        elif mode == "prefill":
+            new_cache = {"prefix": [], "stack": KVCache(
+                torch.stack([c.k for c in caches]), torch.stack([c.v for c in caches]),
+                caches[0].length)}
+        return x, new_cache, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    # ---------------- public API -------------------------------------------
+    def _tokens(self, params, tokens) -> torch.Tensor:
+        device = params["embed"].device
+        if isinstance(tokens, torch.Tensor):
+            return tokens.to(device=device, dtype=torch.long)
+        return torch.as_tensor(np.asarray(tokens), dtype=torch.long, device=device)
+
+    def forward(self, params, tokens, frontend=None):
+        """Full-sequence logits (train path). Returns (logits, aux_loss)."""
+        tokens = self._tokens(params, tokens)
+        x = self._embed(params, tokens)
+        B, S = tokens.shape
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        x, _, aux = self._run_layers(params, x, positions, "train", None, 0)
+        return self._head(params, x), aux
+
+    def prefill(self, params, tokens, frontend=None, cache_len: int = 0):
+        """Build the serving cache; returns (last-position logits, cache)."""
+        tokens = self._tokens(params, tokens)
+        x = self._embed(params, tokens)
+        B, S = tokens.shape
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        x, cache, _ = self._run_layers(params, x, positions, "prefill", None, cache_len or S)
+        return self._head(params, x[:, -1:, :]), cache
+
+    def decode_step(self, params, token, cache):
+        """token: (B, 1) ints. Returns (logits (B,1,V), cache), the cache
+        written in place."""
+        x = self._embed(params, self._tokens(params, token))
+        x, new_cache, _ = self._run_layers(params, x, None, "decode", cache, 0)
+        return self._head(params, x), new_cache
+
+    def init_cache(self, batch: int, max_len: int, length: int = 0, device="cuda"):
+        """Empty cache for decode; ``length`` tokens considered present."""
+        dev = resolve_device(device)
+        stack = attn_lib.empty_cache(self.cfg, batch, max_len, self.dtype, dev, length,
+                                     layers=self.cfg.num_layers)
+        return {"prefix": [], "stack": stack}
+
+    # ---------------- training --------------------------------------------
+    def loss(self, params, batch):
+        raise NotImplementedError("Model.loss waits for ROADMAP A.13, part 2 (optim/ and a "
+                                  "backward kernel)")
+
+    def train_step(self, train_cfg, params, opt_state, batch, lr):
+        raise NotImplementedError("Model.train_step waits for ROADMAP A.13, part 2 (optim/ "
+                                  "and a backward kernel)")
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    return Model(cfg)
+
+
+def params_from_jax(cfg: ModelConfig, params, device="cuda") -> Dict[str, Any]:
+    """The reference's parameters (nested dicts of arrays, ``layers``
+    stacked ``(L, ...)``, as ``repro.models.transformer.Model.init`` gives
+    them) as the port's tensors on ``device``, in the config's dtype."""
+    dev = resolve_device(device)
+    dtype = TORCH_DTYPES[cfg.dtype]
+
+    def convert(tree):
+        if isinstance(tree, dict):
+            return {name: convert(sub) for name, sub in tree.items()}
+        arr = np.asarray(tree, dtype=np.float32)
+        return torch.from_numpy(arr.copy()).to(device=dev, dtype=dtype)
+
+    return {name: convert(sub) for name, sub in params.items() if name != "prefix"}

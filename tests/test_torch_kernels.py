@@ -49,6 +49,16 @@ oracle and its interpreted Pallas kernel, the kernel within 1e-5 of it
 against the plain version on the card (``test_model_distance_kernel_on_card``:
 k = 1, 5, 16, 32, N not a multiple of a chunk, a row of zeros, a strided
 view), and bitwise against itself from call to call.
+
+Prefill and decode attention, ``kernels/flash_attention.py``: the kernels
+compute scores and probabilities in f32 and round only the output, so each
+output is held within 1e-5 of the sum ``sum_j p_j |v_j|`` of the plain
+version run in f32 on the same inputs, plus one bf16 unit in the last place
+for bf16 (``test_flash_attention_kernel_on_card``,
+``test_decode_attention_kernel_on_card``: f32 and bf16, hd 64, 128, 256,
+G = 1, 2, 5, 8, ragged S, windows, lengths 0, 1 and S, the model's permuted
+views), and bitwise against itself from call to call; the plain versions
+are held against the reference in ``tests/test_torch_attention.py``.
 """
 import numpy as np
 import pytest
@@ -61,6 +71,7 @@ from repro_torch.kernels import delta_codec as t_dc
 from repro_torch.kernels import cuda_build
 from repro_torch.kernels import event_pop as t_pop
 from repro_torch.kernels import fedavg as t_fedavg
+from repro_torch.kernels import flash_attention as t_fa
 from repro_torch.kernels import gossip_merge as t_gm
 from repro_torch.kernels import hist_bincount as t_hb
 from repro_torch.kernels import model_distance as t_md
@@ -679,3 +690,85 @@ def test_model_distance_kernel_on_card(cuda, k, n, zero_row):
     wide = torch.zeros((k, n + 5), device=cuda)
     wide[:, :n] = x
     assert torch.equal(t_md.model_distance(wide[:, :n]), got)
+
+
+# ---------------------------------------------------------------------------
+# prefill and decode attention
+# ---------------------------------------------------------------------------
+
+ATTN_TOL = 1e-5           # of sum_j p_j |v_j|: f32 sums in another order
+
+
+def attention_scale(plain, q, k, v, *args):
+    """The plain version in f32 on |v|: sum_j p_j |v_j| per output."""
+    return plain(q.float(), k.float(), v.float().abs(), *args)
+
+
+def assert_attention_close(got, q, k, v, plain, *args):
+    want = plain(q.float(), k.float(), v.float(), *args)
+    tol = ATTN_TOL * attention_scale(plain, q, k, v, *args)
+    if got.dtype == torch.bfloat16:
+        tol = tol + torch.from_numpy(_bf16_ulp(want.cpu().numpy())).to(tol.device)
+    assert got.shape == want.shape and got.dtype == q.dtype
+    assert bool(((got.float() - want).abs() <= tol).all())
+
+
+def test_attention_wrappers_refuse_what_the_kernels_do_not_take():
+    q, k = torch.zeros((1, 4, 8, 64)), torch.zeros((1, 2, 8, 64))
+    t_fa._check("flash_attention", q, k, k, 4, 4)
+    with pytest.raises(ValueError, match="head dim"):
+        t_fa._check("flash_attention", q[..., :48], k[..., :48], k[..., :48], 4, 4)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        t_fa._check("flash_attention", q.half(), k.half(), k.half(), 4, 4)
+    with pytest.raises(ValueError, match="layouts"):
+        t_fa._check("decode_attention", q, k, k, 3, 4)
+    source = cuda_build.CSRC / "flash_attention.cu"
+    cmd = cuda_build.build_command("nvcc", source, "x.so")
+    assert source.exists() and "arch=compute_90a,code=sm_90a" in cmd and cmd[-1] == str(source)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KV,S,hd,window", [
+    (2, 4, 2, 200, 64, 0), (1, 16, 8, 1024, 128, 0), (1, 8, 1, 333, 256, 0),
+    (1, 10, 2, 1000, 64, 0), (2, 5, 1, 130, 128, 48), (1, 8, 8, 700, 128, 96), (1, 4, 4, 1, 64, 0),
+])
+def test_flash_attention_kernel_on_card(cuda, dtype, B, H, KV, S, hd, window):
+    gen = torch.Generator(device=cuda).manual_seed(S + H + hd)
+    # the model's layout, (B, S, H, hd), passed permuted
+    q = (torch.randn((B, S, H, hd), generator=gen, device=cuda) * 0.5).to(dtype).transpose(1, 2)
+    k = (torch.randn((B, S, KV, hd), generator=gen, device=cuda) * 0.5).to(dtype).transpose(1, 2)
+    v = torch.randn((B, S, KV, hd), generator=gen, device=cuda).to(dtype).transpose(1, 2)
+    before = cuda_build.LAUNCHES["flash_attention"]
+    got = t_fa.flash_attention(q, k, v, window)
+    again = t_fa.flash_attention(q, k, v, window)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["flash_attention"] == before + 2
+    assert torch.equal(got, again)
+    assert_attention_close(got, q, k, v, t_fa.flash_attention_plain, window)
+    assert torch.equal(t_fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                            window), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV,S,hd,lengths", [
+    (4, 4, 256, 64, [85, 256, 1]), (16, 8, 2048, 128, [2032, 0, 1, 2048]),
+    (8, 1, 777, 256, [777, 513]), (40, 8, 600, 128, [600, 3, 0]), (20, 2, 33, 64, [33, 32]),
+])
+def test_decode_attention_kernel_on_card(cuda, dtype, H, KV, S, hd, lengths):
+    B = len(lengths)
+    gen = torch.Generator(device=cuda).manual_seed(S + H)
+    q = (torch.randn((B, H, hd), generator=gen, device=cuda) * 0.5).to(dtype)
+    k = (torch.randn((B, S, KV, hd), generator=gen, device=cuda) * 0.3).to(dtype)
+    v = torch.randn((B, S, KV, hd), generator=gen, device=cuda).to(dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = cuda_build.LAUNCHES["decode_attention"]
+    got = t_fa.decode_attention(q, k, v, lens)
+    again = t_fa.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["decode_attention"] == before + 2
+    assert torch.equal(got, again)
+    assert_attention_close(got, q, k, v, t_fa.decode_attention_plain, lens)
+    with pytest.raises(ValueError, match="lengths"):
+        t_fa.decode_attention(q, k, v, lens.long())
