@@ -50,7 +50,16 @@ builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (into
    against a 32k cache (``decode_32k``'s context, its batch cut from 128 to
    8), a profiled window of 8 more, and the ``SlotServer`` (4 slots, 8
    requests of 512 prompt tokens, 32 new each); every attention layer
-   launches its kernel once;
+   launches its kernel once; and (2j) the RWKV6 family served at full
+   width: rwkv6-7b in bf16 from a seeded init (7,534,952,448 parameters),
+   ``prefill`` and ``forward`` of 8,192 tokens, a prefill of 8,160 and 32
+   ``decode_step``s fed the true tokens against forward's logits at those
+   positions (bf16 within RWKV_BF16_DECODE_ATOL; an f32 twin at 1,024 tokens
+   within the reference's 2e-2), decode at ``decode_32k``'s batch of 128
+   from that state (16 steps, then a profiled window of 8) and the
+   ``SlotServer`` (4 slots, 8 requests of 512 prompt tokens, 32 new each);
+   every prefill or forward launches the WKV kernel once a layer, decode
+   never;
 3. runs a small ``run_dagfl``, a small ``run_dagfl_gossip`` (a lossy ring
    with a partition), a small banked one (the same ring, starved) and the
    same with the int8 codec on the card and on the CPU with the same draws
@@ -65,14 +74,21 @@ builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (into
    sybil roles bankless): ledgers, fault reports and telemetry bitwise;
    (3i) reduced qwen3-0.6b (f32) and its sliding-window variant with the
    same parameters: prefill and decode logits within 1e-4, the
-   ``SlotServer``'s tokens, ticks and length equal.
+   ``SlotServer``'s tokens, ticks and length equal; (3j) reduced rwkv6-7b
+   (f32): forward and prefill of 96 tokens (the WKV kernel) and 4 decode
+   steps within 1e-4, the ``SlotServer``'s tokens and ticks equal with
+   prompts of 32 and of 9 tokens.
 
 Phase 1 of the merge-winner, chunk-dedup, codec, event-queue, histogram,
-model-distance and attention kernels runs last, after phase 3 (1i times the
-prefill kernel at 8k, 32k, 32k with an 8k window, gemma-2b's MQA and an odd
-f32 shape, and the decode kernel at the 32k cache, ragged lengths with 0, 1
-and S, gemma-2b's shape and f32, each against its plain version in f32 on
-the same inputs; 1f also holds
+model-distance, attention and WKV kernels runs last, after phase 3 (1i
+times the prefill kernel at 8k, 32k, 32k with an 8k window, gemma-2b's MQA
+and an odd f32 shape, and the decode kernel at the 32k cache, ragged lengths
+with 0, 1 and S, gemma-2b's shape and f32, each against its plain version in
+f32 on the same inputs; 1j times the WKV kernel at rwkv6-7b's 8k prefill
+with the model's decays and with strong ones, in f32, one chunk from a
+nonzero state, 32k and an odd f32 shape at hd 128, each against its chunked
+plain version and the sequential scan run in f32 on the same inputs; 1f
+also holds
 ``bin_index`` on the card against the CPU at every f32 edge and the
 sync-period multiples); the digest check (bank table against one payload,
 bitwise) runs before phase 2c.
@@ -159,6 +175,32 @@ ATTN_TOL = 1e-5
 # absolute terms sq_i + sq_j + 2 |x_i . x_j| (sums in another order; the
 # diagonal cancels to near 0)
 DIST_TOL = 1e-5
+# the RWKV model (2j): rwkv6-7b's parameters (the reference's Model.init
+# leaves; ModelConfig.param_count's 8,858,370,048 counts 3 d d_ff a layer
+# where the blocks hold 2 d d_ff + d^2), its prefill length and the f32
+# twin's, the decode steps held to forward's logits, and the decode batch:
+# decode_32k's 128, not cut (the state is 32 MB a sequence, whatever the
+# context)
+RWKV_PARAMS = 7_534_952_448
+RWKV_PREFILL, RWKV_TWIN_PREFILL, RWKV_DECODE_CHECK = 8192, 1024, 32
+RWKV_DECODE_BATCH, RWKV_DECODE_STEPS, RWKV_PROFILED_STEPS = 128, 16, 8
+# the WKV kernel, relative to each output's sum of absolute terms (the same
+# function on |r|, |k|, |v|, |u|, |state|): against its plain version run in
+# f32 (f32 sums in another order), and against the sequential scan (the
+# chunked form's cum_prev - cum cancels under strong decays; the
+# reference's own bound for its chunked form against its scan)
+WKV_TOL, WKV_SCAN_TOL = 1e-5, 5e-4
+# bf16 rwkv6-7b prefill and decode_step against forward (2j (a)): any
+# rounding-level change of an f32 intermediate flips bf16 roundings that the
+# 32 layers carry to the logits: at most 0.34-0.41 and 0.045-0.064 on
+# average at S = 64, 1,024 and 8,192, with the matmuls padded to forward's
+# rows and with forward's WKV through the scan alike, while bf16's forward
+# itself lies 0.47-0.54 (0.069-0.073 on average) from the f32 forward
+# (scripts/torch_decode_gap.py --arch rwkv6-7b); the f32 twin keeps 2e-2
+RWKV_BF16_DECODE_ATOL, RWKV_BF16_DECODE_MEAN = 0.6, 0.08
+# exponentials a second on the special-function units: 16 a clock per SM
+# (CUDA C++ programming guide, compute capability 9.0), 132 SMs, 1.98 GHz
+PEAK_EXP_PER_S = 16 * 132 * 1.98e9
 
 
 class SmokeFailure(Exception):
@@ -2451,6 +2493,312 @@ def phase_model_path(cuda_build):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the RWKV6 family: the WKV kernel (1j), rwkv6-7b served at full width (2j),
+# card vs CPU (3j)
+# ---------------------------------------------------------------------------
+
+
+def wkv_inputs(gen, B, T, H, hd, dtype, decay, nonzero_state):
+    """r, k, v and u in ``dtype``, logw f32 drawn like the model's (``-exp(-1
+    + small)``) or strong (``-exp(min(2 + N, 10))``, the model's clamp), the
+    state f32: zero (a prefill) or standard normal."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    r, k, v = (randn(B, T, H, hd).to(dtype) for _ in range(3))
+    dd = -1.0 + 0.3 * randn(B, T, H, hd) if decay == "model" else 2.0 + randn(B, T, H, hd)
+    logw = -torch.exp(torch.clamp(dd, max=10.0))
+    u = torch.rand((H, hd), generator=gen, device="cuda").mul_(0.5).to(dtype)
+    s0 = randn(B, H, hd, hd) if nonzero_state else torch.zeros((B, H, hd, hd), device="cuda")
+    return r, k, v, logw, u, s0
+
+
+def wkv_bound(B, T, H, hd, esize):
+    """(ms, what bounds it, its three parts): the bytes (r, k, v, u in their
+    type; logw, both states and y in f32) over the memory rate; the f32
+    operations of the chunked form (scores 3 a pair and channel, bonus,
+    A v, r_dec S, the state update) over the f32 peak; its exponentials
+    (masked pairs, both decays, e^total) over the special-function rate."""
+    C = 32
+    nc = T // C
+    pairs = C * (C - 1) // 2
+    nbytes = (3 * esize + 8) * B * T * H * hd + esize * H * hd + 8 * B * H * hd * hd
+    flops = B * H * nc * (3 * pairs * hd + 3 * C * hd + C * (C + 1) * hd + 4 * C * hd * hd)
+    exps = B * H * nc * (pairs * hd + 2 * C * hd + hd)
+    parts = {"bytes_ms": 1e3 * nbytes / PEAK_BYTES_PER_S,
+             "f32_ops_ms": 1e3 * flops / PEAK_F32_FLOPS, "exp_ms": 1e3 * exps / PEAK_EXP_PER_S}
+    ms = max(parts.values())
+    return ms, ("bytes" if parts["bytes_ms"] == ms else "operations"), parts
+
+
+def wkv_case(wm, name, B, T, H, hd, dtype, decay, nonzero_state, gen, reps, plain_calls=1):
+    """One shape of the WKV kernel on the model's (B, T, H, hd) layout: y and
+    the final state against the chunked plain version and the sequential
+    scan, both run in f32 on the same inputs; the same bits twice; then
+    times of the kernel, the chunked plain version and the bound."""
+    args = wkv_inputs(gen, B, T, H, hd, dtype, decay, nonzero_state)
+    got, again = wm.wkv(*args), wm.wkv(*args)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)), f"wkv {name}: two calls differ")
+    r, k, v, logw, u, s0 = args
+    f32 = (r.float(), k.float(), v.float(), logw, u.float(), s0)
+    scale = wm.wkv_chunked_plain(r.float().abs(), k.float().abs(), v.float().abs(), logw,
+                                 u.float().abs(), s0.abs())
+    errs = {}
+    for label, plain, tol in (("plain", wm.wkv_chunked_plain, WKV_TOL),
+                              ("scan", wm.wkv_scan_plain, WKV_SCAN_TOL)):
+        want = plain(*f32)
+        err = [(g - w).abs() for g, w in zip(got, want)]
+        over = max(float((e / sc).max()) for e, sc in zip(err, scale))
+        errs[f"max_abs_err_vs_{label}"] = max(float(e.max()) for e in err)
+        errs[f"max_err_over_scale_vs_{label}"] = over
+        check(over <= tol, f"wkv {name}: kernel off its {label} version by {over} of the scale")
+        del want, err
+    del got, again, scale, f32
+    ms = device_ms(wm.wkv, [args] * reps, warmup=1)
+    # the plain version's thousands of launches outlast any spin: the host in the loop
+    plain_ms = call_ms(wm.wkv_chunked_plain, [args] * plain_calls, warmup=plain_calls - 1)
+    bound_ms, bound_by, parts = wkv_bound(B, T, H, hd, r.element_size())
+    return {"case": name, "B": B, "T": T, "H": H, "hd": hd, "decay": decay,
+            "initial_state": "normal" if nonzero_state else "zero",
+            "dtype": str(dtype).removeprefix("torch."), **errs, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by, **parts,
+            "reps": reps}
+
+
+def phase_wkv_kernel(wm):
+    """Phase 1j: the WKV kernel at rwkv6-7b's shape (H 64, hd 64, bf16) for
+    an 8k prefill with the model's decays and with strong ones, in f32, one
+    chunk from a nonzero state, 32k (``prefill_32k``'s length at B 1), and an
+    odd f32 shape at hd 128; then the shapes it refuses."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    cases = [
+        wkv_case(wm, "main", 1, 8192, 64, 64, torch.bfloat16, "model", False, gen, reps=10,
+                 plain_calls=2),
+        wkv_case(wm, "strong", 1, 8192, 64, 64, torch.bfloat16, "strong", False, gen, reps=5),
+        wkv_case(wm, "f32", 1, 8192, 64, 64, torch.float32, "model", False, gen, reps=5),
+        wkv_case(wm, "one_chunk", 1, 32, 64, 64, torch.bfloat16, "model", True, gen, reps=40),
+        wkv_case(wm, "long_32k", 1, 32768, 64, 64, torch.bfloat16, "model", False, gen, reps=2),
+        wkv_case(wm, "odd_f32_hd128", 3, 96, 5, 128, torch.float32, "strong", True, gen, reps=20),
+    ]
+    torch.cuda.empty_cache()
+    r, k, v, logw, u, s0 = wkv_inputs(gen, 1, 64, 2, 64, torch.float32, "model", False)
+    for bad in ((r[:, :48], k[:, :48], v[:, :48], logw[:, :48], u, s0),
+                (r[..., :32], k[..., :32], v[..., :32], logw[..., :32], u[:, :32],
+                 s0[:, :, :32, :32])):
+        try:
+            wm.wkv(*bad)
+            check(False, "a length or head dim the WKV kernel does not take was not refused")
+        except ValueError:
+            pass
+    return cases
+
+
+def phase_rwkv_path(cuda_build):
+    """Phase 2j: rwkv6-7b at full width in bf16 from a seeded init: (a)
+    ``prefill`` and ``forward`` of RWKV_PREFILL tokens, then a prefill of
+    RWKV_DECODE_CHECK fewer and that many ``decode_step``s fed the true
+    tokens, held to forward's logits at those positions (bf16: within
+    RWKV_BF16_DECODE_ATOL + 2e-2 |logit|, RWKV_BF16_DECODE_MEAN on average;
+    an f32 twin of the same draws at RWKV_TWIN_PREFILL tokens: within the
+    reference's 2e-2); (b) decode at B = RWKV_DECODE_BATCH from (a)'s state in every
+    slot, then a profiled window; (c) the ``SlotServer``. Every prefill or
+    forward of a multiple of 32 tokens launches the WKV kernel once a
+    layer; decode never does."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import Request, SlotServer, serve
+    from repro_torch.models import build_model
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_at_start = torch.cuda.memory_allocated()     # what earlier phases still hold
+    cfg = get_arch("rwkv6-7b")
+    L, V = cfg.num_layers, cfg.vocab_size
+    model = build_model(cfg)
+    params, init_s = timed(model.init, 0, device="cuda")
+    leaves = [p for _, p in param_leaves(params)]
+    n_params = sum(p.numel() for p in leaves)
+    check(n_params == RWKV_PARAMS, f"rwkv6-7b holds {n_params} parameters, not {RWKV_PARAMS}")
+    out = {"arch": cfg.name, "dtype": cfg.dtype, "layers": L, "params": n_params,
+           "param_bytes": sum(p.numel() * p.element_size() for p in leaves),
+           "param_count_formula": cfg.param_count(), "init_s": init_s,
+           "allocated_at_start_bytes": held_at_start}
+    del leaves
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(22)
+    total = collections.Counter()
+
+    def launched(what, expect):
+        got = cuda_build.LAUNCHES.get("wkv", 0)
+        check(got == expect, f"{what}: wkv launched {got} times, expected {expect}")
+        total.update(cuda_build.LAUNCHES)
+        cuda_build.LAUNCHES.clear()
+
+    def max_err(a, b):
+        return float((a - b).abs().max())
+
+    def within(got, want, atol=2e-2):  # the reference's decode==forward bound at 2e-2
+        return bool(((got - want).abs() <= atol + 2e-2 * want.abs()).all())
+
+    def decode_against_forward(m, p, tokens, label):
+        """(forward's logits at the last n + 1 positions, prefill's last and
+        the n decode steps' logits, forward s): n = RWKV_DECODE_CHECK."""
+        S, n = tokens.shape[1], RWKV_DECODE_CHECK
+        (logits, _), forward_s = timed(m.forward, p, tokens)
+        launched(f"{label} forward", L)
+        check(bool(torch.isfinite(logits).all()) and logits.shape == (1, S, V),
+              f"{label} forward logits {tuple(logits.shape)} not finite")
+        want = logits[0, S - n - 1:].float()
+        del logits
+        last, cache = m.prefill(p, tokens[:, :S - n])
+        launched(f"{label} prefill of {S - n}", L)
+        got = [last[0, 0].float()]
+        for i in range(S - n, S):
+            step, cache = m.decode_step(p, tokens[:, i:i + 1], cache)
+            got.append(step[0, 0].float())
+        launched(f"{label} decode steps", 0)
+        return want, torch.stack(got), forward_s
+
+    # (a) prefill and forward of 8,192 tokens; decode against forward, in bf16
+    # and in an f32 twin of the same draws (the bf16 weights are these rounded)
+    S = RWKV_PREFILL
+    tokens = torch.randint(0, V, (1, S), generator=gen, device="cuda")
+    model.prefill(params, tokens[:, :512])                 # warm-up (allocator, cuBLAS)
+    cuda_build.LAUNCHES.clear()
+    (last, cache), prefill_s = timed(model.prefill, params, tokens)
+    launched("bf16 prefill", L)
+    check(bool(torch.isfinite(last).all()), "bf16 prefill logits not finite")
+    want, got, forward_s = decode_against_forward(model, params, tokens, "bf16")
+    bf_max, bf_mean = max_err(got, want), float((got - want).abs().mean())
+    check(within(got, want, RWKV_BF16_DECODE_ATOL) and bf_mean <= RWKV_BF16_DECODE_MEAN,
+          f"bf16: prefill and decode_step off forward by {bf_max}, {bf_mean} on average")
+    a = {"prefill_tokens": S, "prefill_s": prefill_s, "prefill_tokens_per_s": S / prefill_s,
+         "forward_s": forward_s, "decode_checked_steps": RWKV_DECODE_CHECK,
+         "bf16_prefill_vs_forward_max_abs_err": max_err(got[0], want[0]),
+         "bf16_decode_vs_forward_max_abs_err": max_err(got[1:], want[1:]),
+         "bf16_max_abs_err": bf_max, "bf16_mean_abs_err": bf_mean,
+         "bf16_decode_argmax_is_forward_argmax": int(
+             (got[1:].argmax(-1) == want[1:].argmax(-1)).sum()),
+         "forward_logit_abs_max": float(want.abs().max())}
+    del want, got
+    twin = build_model(dataclasses.replace(cfg, dtype="float32"))
+    p32 = twin.init(0, device="cuda")
+    want, got, twin_forward_s = decode_against_forward(twin, p32, tokens[:, :RWKV_TWIN_PREFILL],
+                                                       "f32")
+    check(within(got, want), f"f32: decode_step off forward by {max_err(got, want)}")
+    a.update({"f32_tokens": RWKV_TWIN_PREFILL, "f32_forward_s": twin_forward_s,
+              "f32_prefill_vs_forward_max_abs_err": max_err(got[0], want[0]),
+              "f32_decode_vs_forward_max_abs_err": max_err(got[1:], want[1:]),
+              "tolerance": "f32: 2e-2 + 2e-2 |logit|; bf16: "
+                           f"{RWKV_BF16_DECODE_ATOL} + 2e-2 |logit|, "
+                           f"mean {RWKV_BF16_DECODE_MEAN}"})
+    a["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    out["a_prefill_forward_decode"] = a
+    del want, got, p32, twin
+    torch.cuda.empty_cache()
+
+    # (b) decode at B = 128 from (a)'s state, copied into every slot
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()          # the params and (a)'s state
+    B = RWKV_DECODE_BATCH
+    states = model.init_cache(B, 0, device="cuda")
+    for dst, src in zip(states, cache):
+        dst.copy_(src.expand_as(dst))
+    tok = torch.randint(0, V, (B, 1), generator=gen, device="cuda")
+    step_ms = []
+    for _ in range(RWKV_DECODE_STEPS):
+        (step, states), s = timed(model.decode_step, params, tok, states)
+        tok = torch.argmax(step[:, 0], dim=-1, keepdim=True)
+        step_ms.append(1e3 * s)
+    launched("B = 128 decode steps", 0)
+    check(bool(torch.isfinite(step).all()) and step.shape == (B, 1, V), "decode logits not finite")
+    steady = step_ms[1:]
+    out["b_decode"] = {
+        "batch": B, "state_bytes": sum(leaf.numel() * leaf.element_size() for leaf in states),
+        "steps": RWKV_DECODE_STEPS, "step_ms": step_ms,
+        "ms_per_step_steady": sum(steady) / len(steady),
+        "tokens_per_s_steady": B * 1e3 * len(steady) / sum(steady),
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "allocated_before_bytes": held_before}
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(RWKV_PROFILED_STEPS):
+            step, states = model.decode_step(params, tok, states)
+            tok = torch.argmax(step[:, 0], dim=-1, keepdim=True)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t)
+    launched("profiled decode steps", 0)
+    out["b_profile_decode"] = {"steps": RWKV_PROFILED_STEPS, **trace_summary(prof, wall_ms)}
+    del states, step, prof, cache, last
+    torch.cuda.empty_cache()
+
+    # (c) the slot server: every slot carries its own request's state
+    slots, n_req, prompt_len, max_new = SERVE_SLOTS, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW
+    rng = np.random.default_rng(22)
+    queue = [Request(i, rng.integers(0, V, prompt_len).astype(np.int32), max_new)
+             for i in range(n_req)]
+    server = SlotServer(cfg, params, slots, prompt_len + max_new + 2)
+    ticks, wall_s = timed(serve, server, queue)
+    check(all(r.done and len(r.out) == max_new for r in queue), "a request did not complete")
+    launched("SlotServer", L * n_req)
+    out["c_slot_server"] = {"slots": slots, "requests": n_req, "prompt_tokens": prompt_len,
+                            "new_tokens": max_new, "ticks": ticks, "wall_s": wall_s,
+                            "tokens_out": sum(len(r.out) for r in queue),
+                            "tokens_per_s": sum(len(r.out) for r in queue) / wall_s}
+    out["launches"] = dict(total)
+    return out
+
+
+def phase_small_rwkv_agreement():
+    """Phase 3j: reduced rwkv6-7b (f32), the same parameters on the card and
+    on the CPU: forward and prefill of 96 tokens (the WKV kernel on the card,
+    its plain version on the CPU) and 4 decode steps, logits within 1e-4;
+    the ``SlotServer``'s tokens and ticks equal, with prompts of 32 tokens
+    (the kernel) and of 9 (the scan)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import cuda_build
+    from repro_torch.launch.serve import Request, SlotServer, serve
+    from repro_torch.models import build_model
+
+    cfg = get_arch("rwkv6-7b").reduced()
+    model = build_model(cfg)
+    cpu = model.init(0, device="cpu")
+    card = tree_to(cpu, "cuda")
+    tokens = np.random.default_rng(23).integers(0, cfg.vocab_size, (2, 96 + 4))
+    cuda_build.LAUNCHES.clear()
+    worst = float((model.forward(card, tokens[:, :96])[0].cpu()
+                   - model.forward(cpu, tokens[:, :96])[0]).abs().max())
+    caches = {device: model.prefill(params, tokens[:, :96])
+              for device, params in (("cuda", card), ("cpu", cpu))}
+    check(cuda_build.LAUNCHES.get("wkv", 0) == 2 * cfg.num_layers,
+          f"3j: wkv launched {cuda_build.LAUNCHES.get('wkv', 0)} times")
+    worst = max(worst, float((caches["cuda"][0].cpu() - caches["cpu"][0]).abs().max()))
+    cg, cc = caches["cuda"][1], caches["cpu"][1]
+    for step in range(4):
+        tok = tokens[:, 96 + step:97 + step]
+        lg, cg = model.decode_step(card, tok, cg)
+        lc, cc = model.decode_step(cpu, tok, cc)
+        worst = max(worst, float((lg.cpu() - lc).abs().max()))
+    check(worst <= 1e-4, f"3j: card and CPU logits differ by {worst}")
+    servers = {}
+    for prompt_len in (32, 9):
+        outs = {}
+        for device, params in (("cuda", card), ("cpu", cpu)):
+            rng = np.random.default_rng(24)
+            queue = [Request(i, rng.integers(0, cfg.vocab_size, prompt_len).astype(np.int32), 6)
+                     for i in range(5)]
+            server = SlotServer(cfg, params, 2, prompt_len + 8)
+            outs[device] = (serve(server, queue), [r.out for r in queue])
+        check(outs["cuda"] == outs["cpu"], f"3j: SlotServer differs at {prompt_len}: {outs}")
+        servers[f"prompt_{prompt_len}"] = {"ticks": outs["cuda"][0],
+                                           "tokens": sum(len(o) for o in outs["cuda"][1])}
+    return {"logits_max_abs_diff": worst, **servers}
+
+
 def param_leaves(tree, path=()):
     """(key path, tensor) of every tensor of a nested dict of parameters."""
     if isinstance(tree, dict):
@@ -2525,7 +2873,7 @@ def main() -> int:
     from repro_torch.device import resolve_device
     from repro_torch.kernels import chunk_transfer, cuda_build, delta_codec, event_pop, fedavg
     from repro_torch.kernels import flash_attention, gossip_merge, hist_bincount
-    from repro_torch.kernels import model_distance
+    from repro_torch.kernels import model_distance, wkv
 
     resolve_device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -2588,6 +2936,10 @@ def main() -> int:
         model_path = phase_model_path(cuda_build)
         print(json.dumps({"model_main_path": model_path}))
         print(f"[phase 2i] qwen3-0.6b served: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        rwkv_path = phase_rwkv_path(cuda_build)
+        print(json.dumps({"rwkv_main_path": rwkv_path}))
+        print(f"[phase 2j] rwkv6-7b served: {time.perf_counter() - t:.1f} s")
         print(json.dumps({"profile_events": phase_profile(
             "run_dagfl_gossip",
             label="run_dagfl_gossip(engine=events, 1 Mbit/s, 0.5 s links, int4)",
@@ -2619,6 +2971,9 @@ def main() -> int:
         t = time.perf_counter()
         print(json.dumps({"small_model_agreement": phase_small_model_agreement()}))
         print(f"[phase 3i] the dense model, card against CPU: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        print(json.dumps({"small_rwkv_agreement": phase_small_rwkv_agreement()}))
+        print(f"[phase 3j] the RWKV model, card against CPU: {time.perf_counter() - t:.1f} s")
         gossip_cases = phase_gossip_kernel(gossip_merge)
         print(json.dumps({"gossip_cases": gossip_cases}))
         dedup_cases = phase_dedup_kernel(chunk_transfer)
@@ -2644,6 +2999,10 @@ def main() -> int:
         attention_cases = phase_attention_kernels(flash_attention)
         print(json.dumps({"attention_cases": attention_cases}))
         print(f"[phase 1i] attention kernels vs plain: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        wkv_cases = phase_wkv_kernel(wkv)
+        print(json.dumps({"wkv_cases": wkv_cases}))
+        print(f"[phase 1j] wkv kernel vs plain: {time.perf_counter() - t:.1f} s")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2781,6 +3140,21 @@ def main() -> int:
             "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"],   # scaled_dot_product_attention
         })
+    wkv_main = next(c for c in wkv_cases if c["case"] == "main")
+    kernels.append({
+        "name": "wkv",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/wkv.cu",
+        "replaces": "src/repro/kernels/wkv.py:80",
+        "launches": rwkv_path["launches"].get("wkv", 0),
+        "max_abs_err": max(c["max_abs_err_vs_plain"] for c in wkv_cases),
+        "ms": wkv_main["ms"],
+        "kernel_ms": wkv_main["ms"],
+        "plain_ms": wkv_main["plain_ms"],
+        "bound_ms": wkv_main["bound_ms"],
+        "bound_by": wkv_main["bound_by"],
+        "library_ms": None,          # no single PyTorch call computes the WKV recurrence
+    })
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -22,6 +22,8 @@ import subprocess
 from pathlib import Path
 from typing import Iterable, List
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
@@ -84,6 +86,18 @@ def build(sources: Iterable[Path]) -> List[Path]:
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return libs
+
+
+def aligned_rows(x):
+    """``x`` if a kernel can read its rows in place by 16-byte copies: unit
+    stride on the last axis, 16-byte aligned, every other stride a whole
+    number of 16-byte vectors. Otherwise a contiguous copy (a fresh,
+    aligned allocation)."""
+    vec = 16 // x.element_size()
+    if (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+            and all(s % vec == 0 for s in x.stride()[:-1])):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 @functools.lru_cache(maxsize=None)

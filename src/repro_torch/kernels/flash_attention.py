@@ -148,17 +148,6 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """``x`` if the kernel can read it in place: unit stride on the last
-    axis, 16-byte aligned, every other stride a whole number of 16-byte
-    vectors. Otherwise a contiguous copy (a fresh, aligned allocation)."""
-    vec = 16 // x.element_size()
-    if (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
-            and all(s % vec == 0 for s in x.stride()[:-1])):
-        return x
-    return x.clone(memory_format=torch.contiguous_format)
-
-
 def _check(name, q, k, v, q_dims, kv_dims):
     if q.dim() != q_dims or k.dim() != kv_dims or v.shape != k.shape:
         raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
@@ -195,7 +184,7 @@ def flash_attention(q, k, v, window: int = 0) -> torch.Tensor:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} and k {tuple(k.shape)} are not "
                          f"(B, H, S, hd) and (B, KV, S, hd) with H a multiple of KV, or the "
                          f"window {window} is negative")
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    q, k, v = map(cuda_build.aligned_rows, (q, k, v))
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
     lib = _library()
     code = lib.flash_attention(
@@ -230,7 +219,7 @@ def decode_attention(q, k, v, lengths) -> torch.Tensor:
         raise ValueError(f"decode_attention: lengths must be a contiguous ({B},) int32 tensor "
                          f"on {q.device}, got {tuple(lengths.shape)} {lengths.dtype} on "
                          f"{lengths.device}")
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    q, k, v = map(cuda_build.aligned_rows, (q, k, v))
     lib = _library()
     out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
     work = torch.empty((lib.decode_attention_workspace(B, H, KV, S, hd),),

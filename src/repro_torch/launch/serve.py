@@ -8,11 +8,15 @@ decode state; arriving requests are prefilled into free slots, all active
 slots decode in lockstep (one ``decode_step`` per tick, through the decode
 attention kernel on the card), finished requests free their slot.
 
-As in the reference, the slots share one cache position: ``_write_slot``
-copies a prefilled request's k and v into its slot but leaves the server's
-``length`` as it is (the reference skips every cache leaf of fewer than two
-dimensions, and its stacked length is one), so the first tick decodes at
-position 0, whatever the prompt's length.
+As in the reference, the dense model's slots share one cache position:
+``_write_slot`` copies a prefilled request's k and v into its slot but
+leaves the server's ``length`` as it is (the reference skips every cache
+leaf of fewer than two dimensions, and its stacked length is one), so the
+first tick decodes at position 0, whatever the prompt's length. An RWKV
+cache (``RWKVState``: three stacked ``(L, B, ...)`` leaves, no length) is
+copied leaf by leaf, so every slot carries its own request's state:
+
+    python -m repro_torch.launch.serve --arch rwkv6-7b --device cpu
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import torch
 
 from repro_torch.configs import get_arch, list_archs
 from repro_torch.models import build_model
+from repro_torch.models.rwkv import RWKVState
 
 
 @dataclass
@@ -52,10 +57,14 @@ class SlotServer:
 
     def _write_slot(self, slot: int, cache_one, last_tok: int):
         """Copy a freshly prefilled single-request cache into slot ``slot``
-        (in place; the shared length stays the server's)."""
-        dst, src = self.cache["stack"], cache_one["stack"]
-        dst.k[:, slot] = src.k[:, 0]
-        dst.v[:, slot] = src.v[:, 0]
+        (in place; a dense cache's shared length stays the server's)."""
+        if isinstance(self.cache, RWKVState):
+            for dst, src in zip(self.cache, cache_one):
+                dst[:, slot] = src[:, 0]
+        else:
+            dst, src = self.cache["stack"], cache_one["stack"]
+            dst.k[:, slot] = src.k[:, 0]
+            dst.v[:, slot] = src.v[:, 0]
         self.tokens[slot, 0] = last_tok
 
     def admit(self, req: Request) -> bool:
@@ -88,8 +97,11 @@ class SlotServer:
                 self.active[s] = None
 
     @property
-    def length(self) -> int:
-        """The cache position every slot decodes at next."""
+    def length(self) -> Optional[int]:
+        """The cache position every slot decodes at next; None for a state
+        cache (RWKV), which has no position."""
+        if isinstance(self.cache, RWKVState):
+            return None
         return self.cache["stack"].length
 
 

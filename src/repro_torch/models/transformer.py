@@ -1,21 +1,30 @@
-"""The model zoo's dense decoder-only transformer on PyTorch.
+"""The model zoo's decoder-only models on PyTorch: the dense transformer
+and RWKV6.
 
-The port of ``repro.models.transformer`` for the dense family (GQA/MQA
-attention, full or sliding-window, QK-norm, QKV bias; rmsnorm, layernorm or
-OLMo's non-parametric layernorm; swiglu, geglu or gelu MLP; tied or untied
-head). Layer parameters are stacked ``(L, ...)`` tensors, walked by a Python
-loop (the reference scans them). Every attention layer goes through the
-hand-written kernels of ``kernels/flash_attention.py``: ``forward`` and
-``prefill`` through ``flash_attention``, ``decode_step`` through
-``decode_attention`` (one launch each a layer on the card).
+The port of ``repro.models.transformer`` for two families. Layer parameters
+are stacked ``(L, ...)`` tensors, walked by a Python loop (the reference
+scans them).
+
+- dense (GQA/MQA attention, full or sliding-window, QK-norm, QKV bias;
+  rmsnorm, layernorm or OLMo's non-parametric layernorm; swiglu, geglu or
+  gelu MLP; tied or untied head). Every attention layer goes through the
+  hand-written kernels of ``kernels/flash_attention.py``: ``forward`` and
+  ``prefill`` through ``flash_attention``, ``decode_step`` through
+  ``decode_attention`` (one launch each a layer on the card). Caches are
+  ``{"prefix": [], "stack": KVCache(k, v, length)}`` with k and v ``(L, B,
+  S, KV, hd)`` written in place by ``decode_step`` and ``length`` a host int
+  (the reference stacks one length a layer, all equal).
+- rwkv (``models/rwkv.py``): ``embed_norm``, then the blocks. ``forward``
+  and ``prefill`` of a length that is a multiple of 32 run every layer's
+  WKV through the hand-written kernel of ``kernels/wkv.py`` (one launch a
+  layer on the card); ``decode_step`` and other lengths take the plain
+  sequential scan. The cache is a stacked ``RWKVState`` (tm_shift and
+  cm_shift ``(L, B, d)`` in the model's dtype, wkv ``(L, B, H, hd, hd)``
+  f32), with no length; ``decode_step`` writes it in place.
 
 The other families raise ``NotImplementedError`` naming their ROADMAP item,
 and so do ``loss`` and ``train_step``, which need ``optim/`` and a backward
 kernel.
-
-Caches are ``{"prefix": [], "stack": KVCache(k, v, length)}`` with k and v
-``(L, B, S, KV, hd)`` written in place by ``decode_step`` and ``length`` a
-host int (the reference stacks one length a layer, all equal).
 """
 from __future__ import annotations
 
@@ -28,6 +37,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models.attention import KVCache
 from repro_torch.models.layers import (
     dense_init,
@@ -44,8 +54,7 @@ TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def unported_reason(cfg: ModelConfig):
     """Why the port cannot build ``cfg`` yet (its ROADMAP item), or None."""
     if cfg.family == "rwkv":
-        return ("the RWKV family (models/rwkv.py, Model._run_rwkv, the RWKV state cache) "
-                "is ported with the wkv kernel B.11 in the next slice (ROADMAP A.13, part 1)")
+        return None
     if cfg.family == "hybrid":
         return "the hybrid family (Mamba2 + shared attention) waits for ROADMAP A.13, part 2"
     if cfg.is_moe():
@@ -95,10 +104,10 @@ class Model:
     # ---------------- init ------------------------------------------------
     def init(self, seed: int = 0, device="cuda") -> Dict[str, Any]:
         """Synthetic parameters, drawn on ``device`` from a generator seeded
-        with ``seed``."""
+        with ``seed``; ``device="meta"`` gives their shapes alone."""
         cfg, dtype = self.cfg, self.dtype
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = torch.Generator(device="cpu" if dev.type == "meta" else dev).manual_seed(seed)
         L = cfg.num_layers
         params: Dict[str, Any] = {
             "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype, dev),
@@ -106,6 +115,10 @@ class Model:
         }
         if not cfg.tie_embeddings:
             params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dtype, dev)
+        if cfg.family == "rwkv":
+            params["layers"] = rwkv_lib.rwkv_block_init(gen, cfg, dtype, dev, L)
+            params["embed_norm"] = norm_init("layernorm", cfg.d_model, dtype, dev)
+            return params
         params["layers"] = {
             "ln1": norm_init(cfg.norm, cfg.d_model, dtype, dev, L),
             "ln2": norm_init(cfg.norm, cfg.d_model, dtype, dev, L),
@@ -126,6 +139,8 @@ class Model:
 
     # ---------------- the stack -------------------------------------------
     def _run_layers(self, params, x, positions, mode: str, cache, cache_len: int):
+        if self.cfg.family == "rwkv":
+            return self._run_rwkv(params, x, mode, cache)
         return self._run_tf(params, x, positions, mode, cache, cache_len)
 
     def _run_tf(self, params, x, positions, mode, cache, cache_len):
@@ -148,6 +163,30 @@ class Model:
             new_cache = {"prefix": [], "stack": KVCache(
                 torch.stack([c.k for c in caches]), torch.stack([c.v for c in caches]),
                 caches[0].length)}
+        return x, new_cache, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def _run_rwkv(self, params, x, mode, states):
+        """Returns (x, new cache or None, aux loss 0). In decode ``states``
+        is the stacked cache, written in place; otherwise every layer starts
+        from zeros."""
+        cfg = self.cfg
+        x = norm_apply("layernorm", params["embed_norm"], x)
+        if mode != "decode":
+            zero = rwkv_lib.rwkv_empty_state(cfg, x.shape[0], self.dtype, x.device)
+        new_states = []
+        for i in range(cfg.num_layers):
+            st = rwkv_lib.RWKVState(*(leaf[i] for leaf in states)) if mode == "decode" else zero
+            x, new = rwkv_lib.rwkv_block_apply(cfg, _layer(params["layers"], i), x, st)
+            if mode == "decode":
+                for dst, src in zip(st, new):
+                    dst.copy_(src)
+            elif mode == "prefill":
+                new_states.append(new)
+        new_cache = None
+        if mode == "decode":
+            new_cache = states
+        elif mode == "prefill":
+            new_cache = rwkv_lib.RWKVState(*(torch.stack(leaves) for leaves in zip(*new_states)))
         return x, new_cache, torch.zeros((), dtype=torch.float32, device=x.device)
 
     # ---------------- public API -------------------------------------------
@@ -183,8 +222,12 @@ class Model:
         return self._head(params, x), new_cache
 
     def init_cache(self, batch: int, max_len: int, length: int = 0, device="cuda"):
-        """Empty cache for decode; ``length`` tokens considered present."""
+        """Empty cache for decode; ``length`` tokens considered present. For
+        rwkv the stacked zero state, whatever ``max_len`` and ``length``."""
         dev = resolve_device(device)
+        if self.cfg.family == "rwkv":
+            return rwkv_lib.rwkv_empty_state(self.cfg, batch, self.dtype, dev,
+                                             layers=self.cfg.num_layers)
         stack = attn_lib.empty_cache(self.cfg, batch, max_len, self.dtype, dev, length,
                                      layers=self.cfg.num_layers)
         return {"prefix": [], "stack": stack}

@@ -147,9 +147,9 @@ def test_kernel_reads_permuted_views_in_place():
     """The model's (B, S, H, hd) tensors, permuted to (B, H, S, hd), keep
     their storage; a view whose rows are not 16-byte vectors is copied."""
     x = torch.zeros((2, 40, 6, 64), dtype=torch.bfloat16).transpose(1, 2)
-    assert t_fa._aligned(x) is x
+    assert cuda_build.aligned_rows(x) is x
     odd = torch.zeros((2, 40, 6, 66))[..., 1:65].transpose(1, 2)
-    copy = t_fa._aligned(odd)
+    copy = cuda_build.aligned_rows(odd)
     assert copy is not odd and copy.is_contiguous() and torch.equal(copy, odd)
 
 

@@ -59,6 +59,17 @@ for bf16 (``test_flash_attention_kernel_on_card``,
 G = 1, 2, 5, 8, ragged S, windows, lengths 0, 1 and S, the model's permuted
 views), and bitwise against itself from call to call; the plain versions
 are held against the reference in ``tests/test_torch_attention.py``.
+
+The RWKV6 WKV recurrence, ``kernels/wkv.py``: y and the final state are
+held within 1e-5 of the same function on the absolute values of r, k, v, u
+and the state (the decays are positive, so that is each output's sum of
+absolute terms) against ``wkv_chunked_plain`` run in f32 on the same inputs,
+and within 5e-4 of it against the sequential ``wkv_scan_plain``, from which
+the chunked form itself lies up to 1.1e-4 away when decays are wide
+(``cum_prev[t] - cum[s]`` cancels); f32 and bf16, hd 64 and 128, model-like,
+strong and wide decays, a nonzero initial state, strided views, state
+carried across calls, and bitwise against itself from call to call. The
+plain versions are held against the reference in ``tests/test_torch_wkv.py``.
 """
 import numpy as np
 import pytest
@@ -75,6 +86,7 @@ from repro_torch.kernels import flash_attention as t_fa
 from repro_torch.kernels import gossip_merge as t_gm
 from repro_torch.kernels import hist_bincount as t_hb
 from repro_torch.kernels import model_distance as t_md
+from repro_torch.kernels import wkv as t_wkv
 
 
 @pytest.fixture(scope="module")
@@ -772,3 +784,99 @@ def test_decode_attention_kernel_on_card(cuda, dtype, H, KV, S, hd, lengths):
     assert_attention_close(got, q, k, v, t_fa.decode_attention_plain, lens)
     with pytest.raises(ValueError, match="lengths"):
         t_fa.decode_attention(q, k, v, lens.long())
+
+
+# ---------------------------------------------------------------------------
+# the RWKV6 WKV recurrence
+# ---------------------------------------------------------------------------
+
+# of the same function on |r|, |k|, |v|, |u|, |state|: f32 sums in another order;
+# against the sequential scan, the chunked form's cum_prev - cum cancels
+WKV_TOL, WKV_SCAN_TOL = 1e-5, 5e-4
+
+
+def wkv_inputs(gen, B, T, H, hd, dtype, decay, device, state=True):
+    """r, k, v, u in ``dtype``; logw f32 drawn like the model's (``-exp(-1 +
+    small)``), or strong (``-exp(min(2 + N, 10))``) or wide (``-exp(2 N)``);
+    a nonzero f32 state."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    r, k, v = (randn(B, T, H, hd).to(dtype) for _ in range(3))
+    dd = {"model": -1.0 + 0.3 * randn(B, T, H, hd), "strong": 2.0 + randn(B, T, H, hd),
+          "wide": 2.0 * randn(B, T, H, hd)}[decay]
+    logw = -torch.exp(torch.clamp(dd, max=10.0))
+    u = torch.rand((H, hd), generator=gen, device=device).to(dtype)
+    s0 = randn(B, H, hd, hd) if state else torch.zeros((B, H, hd, hd), device=device)
+    return r, k, v, logw, u, s0
+
+
+def assert_wkv_close(got, args, plain, tol):
+    """y and state of ``got`` within ``tol`` of ``plain`` run in f32 on the
+    same inputs, relative to ``plain`` on their absolute values."""
+    r, k, v, logw, u, s0 = args
+    want = plain(r.float(), k.float(), v.float(), logw, u.float(), s0)
+    scale = plain(r.float().abs(), k.float().abs(), v.float().abs(), logw, u.float().abs(),
+                  s0.abs())
+    for g, w, sc in zip(got, want, scale):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        assert bool(((g - w).abs() <= tol * sc).all()), float(((g - w).abs() / sc).max())
+
+
+def test_wkv_wrapper_refuses_what_the_kernel_does_not_take():
+    gen = torch.Generator().manual_seed(0)
+    args = wkv_inputs(gen, 1, 64, 2, 64, torch.float32, "model", "cpu")
+    t_wkv._check(*args)
+    r, k, v, logw, u, s0 = args
+    with pytest.raises(ValueError, match="head dim"):
+        t_wkv._check(r[..., :32], k[..., :32], v[..., :32], logw[..., :32], u[:, :32],
+                     s0[:, :, :32, :32])
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        t_wkv._check(r[:, :48], k[:, :48], v[:, :48], logw[:, :48], u, s0)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        t_wkv.wkv(r[:, :48], k[:, :48], v[:, :48], logw[:, :48], u, s0)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        t_wkv._check(r.half(), k.half(), v.half(), logw, u.half(), s0)
+    with pytest.raises(ValueError, match="logw and state"):
+        t_wkv._check(r, k, v, logw.bfloat16(), u, s0)
+    with pytest.raises(ValueError, match="u .* and state"):
+        t_wkv._check(r, k, v, logw, u[:1], s0)
+    before = cuda_build.LAUNCHES["wkv"]
+    t_wkv.wkv(*args)
+    assert cuda_build.LAUNCHES["wkv"] == before
+    source = cuda_build.CSRC / "wkv.cu"
+    cmd = cuda_build.build_command("nvcc", source, "x.so")
+    assert source.exists() and "arch=compute_90a,code=sm_90a" in cmd and cmd[-1] == str(source)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,hd,decay", [
+    (1, 32, 4, 64, "model"), (2, 256, 3, 64, "model"), (1, 96, 2, 128, "strong"),
+    (2, 64, 2, 64, "wide"), (3, 1024, 2, 64, "strong"), (1, 160, 5, 128, "model"),
+])
+def test_wkv_kernel_on_card(cuda, dtype, B, T, H, hd, decay):
+    gen = torch.Generator(device=cuda).manual_seed(T + H + hd)
+    args = wkv_inputs(gen, B, T, H, hd, dtype, decay, cuda)
+    before = cuda_build.LAUNCHES["wkv"]
+    got, again = t_wkv.wkv(*args), t_wkv.wkv(*args)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["wkv"] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert_wkv_close(got, args, t_wkv.wkv_chunked_plain, WKV_TOL)
+    assert_wkv_close(got, args, t_wkv.wkv_scan_plain, WKV_SCAN_TOL)
+
+
+@pytest.mark.cuda
+def test_wkv_kernel_reads_strided_views_and_carries_state(cuda):
+    """The model's (B, T, H, hd) views of wider rows are read in place, and
+    two calls over the halves of a sequence equal one call over all of it."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    r, k, v, logw, u, s0 = wkv_inputs(gen, 2, 128, 4, 64, torch.bfloat16, "model", cuda)
+    wide = torch.zeros((2, 128, 4, 192), dtype=torch.bfloat16, device=cuda)
+    wide[..., :64], wide[..., 64:128], wide[..., 128:] = r, k, v
+    got = t_wkv.wkv(wide[..., :64], wide[..., 64:128], wide[..., 128:], logw, u, s0)
+    assert all(torch.equal(a, b) for a, b in zip(got, t_wkv.wkv(r, k, v, logw, u, s0)))
+    y1, mid = t_wkv.wkv(r[:, :64], k[:, :64], v[:, :64], logw[:, :64], u, s0)
+    y2, end = t_wkv.wkv(r[:, 64:], k[:, 64:], v[:, 64:], logw[:, 64:], u, mid)
+    assert torch.equal(torch.cat([y1, y2], dim=1), got[0]) and torch.equal(end, got[1])

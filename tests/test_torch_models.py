@@ -88,7 +88,7 @@ def test_configs_are_the_references():
         get_arch("nope")
 
 
-@pytest.mark.parametrize("name", ["rwkv6-7b", "zamba2-2.7b", "deepseek-v2-236b",
+@pytest.mark.parametrize("name", ["zamba2-2.7b", "deepseek-v2-236b",
                                   "kimi-k2-1t-a32b", "musicgen-large", "paligemma-3b"])
 def test_unported_families_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
