@@ -2204,6 +2204,58 @@ def attention_errors(got, plain, args32, absargs32, dtype, plain_args):
     return ok, out
 
 
+def prefill_tensor_ops(B, H, S, hd, window):
+    """Tensor operations the bf16 prefill kernel issues: each warpgroup (64
+    query rows of a head) takes Q K^T once and p @ v twice (p_hi and p_lo) on
+    every key tile it does not skip, 2 * 64 * tile * hd operations each, the
+    masked parts of edge tiles included (csrc/flash_attention.cu)."""
+    tile = 128 if hd <= 128 else 64
+    tiles = 0
+    for r_lo in range(0, S, 64):
+        first = max(0, r_lo - window + 1) // tile if window else 0
+        tiles += min(r_lo + 63, S - 1) // tile - first + 1
+    return 3.0 * 2 * 64 * tile * hd * tiles * B * H
+
+
+def attention_kernel_resources(cuda_build):
+    """Registers, spills and stack of each attention kernel, from nvcc's
+    -Xptxas=-v report in the build log, and the dynamic shared memory its
+    launcher asks for (the layouts of csrc/flash_attention.cu: tc::Prefill,
+    tc::Decode, prefill_smem_bytes, decode_smem_bytes)."""
+    import re
+
+    log = cuda_build.library_path(cuda_build.CSRC / "flash_attention.cu").with_suffix(".log")
+    out, name = {}, None
+    for line in log.read_text().splitlines():
+        entry = re.search(r"Compiling entry function '\S*?\d([a-z_]+_kernel)I(f?)Li(\d+)E", line)
+        if entry:
+            name = f"{entry.group(1)}<{'f32, ' if entry.group(2) else ''}{entry.group(3)}>"
+            out[name] = {}
+        elif name and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                                      r"(\d+) bytes spill loads", line)):
+            out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out[name]["registers"] = int(m.group(1))
+            if s := re.search(r"(\d+) bytes smem", line):
+                out[name]["static_smem"] = int(s.group(1))
+    for hd in (64, 128, 256):
+        cols, tile, warps = hd // 64, (128 if hd <= 128 else 64), (2 if hd == 256 else 4)
+        dynamic = {
+            f"flash_prefill_tc_kernel<{hd}>": 2 * cols * 8192 + 2 * 2 * cols * tile * 128 + 40 + 1024,
+            f"decode_tc_kernel<{hd}>": 2 * 3 * cols * 16 * warps * 128 + 64 + 32 * (2 + warps) + 8
+            + 1024,
+            f"flash_prefill_kernel<f32, {hd}>": 4 * (hd * 64 + 2 * hd * 32 + 32 * 68 + 128),
+            f"decode_split_kernel<f32, {hd}>": (lambda t: 8 * t * (hd + 4) + 8 * t * hd
+                                                + 4 * (8 * hd + 8 * t + 24))(32 if hd > 128 else 64),
+        }
+        for kernel, nbytes in dynamic.items():
+            out.setdefault(kernel, {})["dynamic_smem"] = nbytes
+    check(all(r.get("spill_stores", 0) == 0 for r in out.values()),
+          f"an attention kernel spills: {out}")
+    return out
+
+
 def prefill_case(fa, name, B, H, KV, S, hd, dtype, window, gen, reps):
     """One shape of the prefill kernel on the model's layout ((B, S, H, hd)
     passed permuted): error against the plain version, the same bits twice,
@@ -2240,10 +2292,15 @@ def prefill_case(fa, name, B, H, KV, S, hd, dtype, window, gen, reps):
     flops = 4.0 * B * H * pairs * hd
     nbytes = (2 * B * H * S * hd + 2 * B * KV * S * hd) * q.element_size()
     bound_ms, bound_by = attention_bound(flops, nbytes, dtype)
+    issued = {}
+    if dtype == torch.bfloat16:
+        ops = prefill_tensor_ops(B, H, S, hd, window)
+        issued = {"tensor_ops_issued": ops, "issued_over_algorithm": ops / flops,
+                  "tensor_tflops_issued": ops / ms / 1e9}
     return {"case": name, "B": B, "H": H, "KV": KV, "S": S, "hd": hd, "window": window,
             "dtype": str(dtype).removeprefix("torch."), **errs, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "tflops_achieved": flops / ms / 1e9, "reps": reps}
+            "tflops_achieved": flops / ms / 1e9, **issued, "reps": reps}
 
 
 def decode_case(fa, name, B, H, KV, S, hd, dtype, lengths, gen, reps):
@@ -2285,10 +2342,12 @@ def decode_case(fa, name, B, H, KV, S, hd, dtype, lengths, gen, reps):
             "gb_per_s_achieved": nbytes / ms / 1e6, "reps": reps}
 
 
-def phase_attention_kernels(fa):
+def phase_attention_kernels(fa, cuda_build):
     """Phase 1i: both attention kernels against their plain versions at the
     served model's shapes (qwen3-0.6b: H 16, KV 8, hd 128, bf16), the long
-    and windowed lengths, gemma-2b's MQA at hd 256, and odd f32 shapes."""
+    and windowed lengths, gemma-2b's MQA at hd 256, and odd f32 shapes; bf16
+    takes the tensor-core route, f32 the CUDA cores. With each kernel's
+    registers and shared memory."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(20)
     prefill = [
@@ -2317,7 +2376,8 @@ def phase_attention_kernels(fa):
             check(False, "a shape or dtype the kernel does not take was not refused")
         except ValueError:
             pass
-    return {"prefill": prefill, "decode": decode}
+    return {"prefill": prefill, "decode": decode,
+            "resources": attention_kernel_resources(cuda_build)}
 
 
 def check_attention_launches(what, launches, flash, decode):
@@ -2996,7 +3056,7 @@ def main() -> int:
         print(json.dumps({"model_distance_cases": distance_cases}))
         print(f"[phase 1h] model_distance vs plain: {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
-        attention_cases = phase_attention_kernels(flash_attention)
+        attention_cases = phase_attention_kernels(flash_attention, cuda_build)
         print(json.dumps({"attention_cases": attention_cases}))
         print(f"[phase 1i] attention kernels vs plain: {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()

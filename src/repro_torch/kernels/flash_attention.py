@@ -16,7 +16,9 @@ q's dtype; head ``h`` reads KV head ``h // (H / KV)``.
 
 For CUDA tensors the dispatchers launch ``repro_torch/csrc/flash_attention.cu``
 (f32 or bf16, ``hd`` in {64, 128, 256}, any ``H / KV``, any ``S``; anything
-else raises ``ValueError``; a failed build or launch raises). They read the
+else raises ``ValueError``; a failed build or launch raises): bf16 on the
+tensor cores (``wgmma`` for prefill, ``mma.sync`` for decode, TMA staging),
+f32 on the CUDA cores. They read the
 strides of q, k and v, so the model passes its ``(B, S, H, hd)`` tensors
 permuted, without a copy, as long as ``hd`` is the unit-stride axis and the
 tensors are 16-byte aligned; otherwise the wrapper copies them contiguous
@@ -33,8 +35,10 @@ free. For CPU tensors the dispatchers take the plain versions:
   a row that is all -1e30); the kernel does the same, where the Pallas
   kernel returns 0.
 
-The kernels round nothing in between, so in bf16 they are held against the
-plain version run in f32 on the same bf16 inputs.
+The kernels keep scores and probabilities in f32 (the bf16 route multiplies
+by p split into two bf16 parts, p_hi + p_lo, which keep p to 2^-17) and
+round only the output, so in bf16 they are held against the plain version
+run in f32 on the same bf16 inputs.
 """
 from __future__ import annotations
 

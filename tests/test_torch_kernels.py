@@ -51,14 +51,18 @@ k = 1, 5, 16, 32, N not a multiple of a chunk, a row of zeros, a strided
 view), and bitwise against itself from call to call.
 
 Prefill and decode attention, ``kernels/flash_attention.py``: the kernels
-compute scores and probabilities in f32 and round only the output, so each
-output is held within 1e-5 of the sum ``sum_j p_j |v_j|`` of the plain
-version run in f32 on the same inputs, plus one bf16 unit in the last place
-for bf16 (``test_flash_attention_kernel_on_card``,
+compute scores and probabilities in f32 (bf16 on the tensor cores with p
+split into two bf16 parts) and round only the output, so each output is
+held within 1e-5 of the sum ``sum_j p_j |v_j|`` of the plain version run in
+f32 on the same inputs, plus one bf16 unit in the last place for bf16
+(``test_flash_attention_kernel_on_card``,
 ``test_decode_attention_kernel_on_card``: f32 and bf16, hd 64, 128, 256,
-G = 1, 2, 5, 8, ragged S, windows, lengths 0, 1 and S, the model's permuted
-views), and bitwise against itself from call to call; the plain versions
-are held against the reference in ``tests/test_torch_attention.py``.
+G = 1, 2, 3, 5, 8, ragged S, S either side of the bf16 route's query and key
+tiles, windows, one narrower than a key tile, lengths 0, 1 and S and either
+side of a chunk, rows with one chunk to read, the model's permuted views),
+and bitwise against itself from call to call; the plain versions are held
+against the reference in ``tests/test_torch_attention.py``, the bf16
+route's arithmetic in ``tests/test_torch_attention_split.py``.
 
 The RWKV6 WKV recurrence, ``kernels/wkv.py``: y and the final state are
 held within 1e-5 of the same function on the absolute values of r, k, v, u
@@ -744,6 +748,11 @@ def test_attention_wrappers_refuse_what_the_kernels_do_not_take():
 @pytest.mark.parametrize("B,H,KV,S,hd,window", [
     (2, 4, 2, 200, 64, 0), (1, 16, 8, 1024, 128, 0), (1, 8, 1, 333, 256, 0),
     (1, 10, 2, 1000, 64, 0), (2, 5, 1, 130, 128, 48), (1, 8, 8, 700, 128, 96), (1, 4, 4, 1, 64, 0),
+    # the bf16 route's tiles: 64 query rows a warpgroup (a block takes 64 positions
+    # of two heads, or 128 of one), keys in tiles of 128 (64 at hd 256)
+    (1, 16, 8, 127, 128, 0), (1, 16, 8, 129, 128, 0), (2, 4, 4, 255, 64, 0),
+    (1, 6, 3, 257, 128, 0), (1, 8, 1, 63, 256, 0), (1, 8, 1, 65, 256, 0),
+    (2, 8, 1, 300, 256, 0), (1, 16, 8, 600, 128, 17), (1, 8, 1, 250, 256, 40),
 ])
 def test_flash_attention_kernel_on_card(cuda, dtype, B, H, KV, S, hd, window):
     gen = torch.Generator(device=cuda).manual_seed(S + H + hd)
@@ -767,6 +776,12 @@ def test_flash_attention_kernel_on_card(cuda, dtype, B, H, KV, S, hd, window):
 @pytest.mark.parametrize("H,KV,S,hd,lengths", [
     (4, 4, 256, 64, [85, 256, 1]), (16, 8, 2048, 128, [2032, 0, 1, 2048]),
     (8, 1, 777, 256, [777, 513]), (40, 8, 600, 128, [600, 3, 0]), (20, 2, 33, 64, [33, 32]),
+    # either side of a chunk boundary (512 slots in f32, 1,024 in bf16); rows whose
+    # every chunk is skipped but the first; gemma-2b's G = 8 at hd 256 with B > 1
+    (16, 8, 2100, 128, [1023, 1024, 1025, 511, 512, 513]), (16, 8, 5000, 128, [3, 1000, 5000]),
+    (8, 1, 4096, 256, [700, 1025, 4096]), (12, 1, 1500, 64, [1500, 0, 1024]),
+    # more chunks in a row than the fold stages at once (768 at hd 256, G = 8)
+    (8, 1, 800_000, 256, [800_000]),
 ])
 def test_decode_attention_kernel_on_card(cuda, dtype, H, KV, S, hd, lengths):
     B = len(lengths)
