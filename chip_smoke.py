@@ -58,8 +58,9 @@ builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (into
    within the reference's 2e-2), decode at ``decode_32k``'s batch of 128
    from that state (16 steps, then a profiled window of 8) and the
    ``SlotServer`` (4 slots, 8 requests of 512 prompt tokens, 32 new each);
-   every prefill or forward launches the WKV kernel once a layer, decode
-   never;
+   every prefill or forward launches the chunked WKV kernel once a layer,
+   every decode step the sequential one, and neither the other; the
+   profiled window's device ms and operations a decode step;
 3. runs a small ``run_dagfl``, a small ``run_dagfl_gossip`` (a lossy ring
    with a partition), a small banked one (the same ring, starved) and the
    same with the int8 codec on the card and on the CPU with the same draws
@@ -75,19 +76,24 @@ builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (into
    (3i) reduced qwen3-0.6b (f32) and its sliding-window variant with the
    same parameters: prefill and decode logits within 1e-4, the
    ``SlotServer``'s tokens, ticks and length equal; (3j) reduced rwkv6-7b
-   (f32): forward and prefill of 96 tokens (the WKV kernel) and 4 decode
-   steps within 1e-4, the ``SlotServer``'s tokens and ticks equal with
-   prompts of 32 and of 9 tokens.
+   (f32): forward and prefill of 96 tokens (the chunked WKV kernel) and 4
+   decode steps (the sequential one) within 1e-4, the ``SlotServer``'s
+   tokens and ticks equal with prompts of 32 and of 9 tokens (the latter
+   prefilled by the sequential kernel), both launch counts checked.
 
 Phase 1 of the merge-winner, chunk-dedup, codec, event-queue, histogram,
 model-distance, attention and WKV kernels runs last, after phase 3 (1i
 times the prefill kernel at 8k, 32k, 32k with an 8k window, gemma-2b's MQA
 and an odd f32 shape, and the decode kernel at the 32k cache, ragged lengths
 with 0, 1 and S, gemma-2b's shape and f32, each against its plain version in
-f32 on the same inputs; 1j times the WKV kernel at rwkv6-7b's 8k prefill
-with the model's decays and with strong ones, in f32, one chunk from a
-nonzero state, 32k and an odd f32 shape at hd 128, each against its chunked
-plain version and the sequential scan run in f32 on the same inputs; 1f
+f32 on the same inputs; 1j times the WKV kernel's chunked route at
+rwkv6-7b's 8k prefill with the model's decays and with strong ones, in f32,
+one chunk from a nonzero state, 32k and an odd f32 shape at hd 128, each
+against its chunked plain version and the sequential scan run in f32 on the
+same inputs, with the bound restated for the tensor cores beside PR 21's,
+and its sequential route at rwkv6-7b's decode step (B 128) and an odd f32
+shape at hd 128, T 9, against ``wkv_scan_plain``, out of place and in
+place, with each WKV kernel's registers and shared memory; 1f
 also holds
 ``bin_index`` on the card against the CPU at every f32 edge and the
 sync-period multiples); the digest check (bank table against one payload,
@@ -117,6 +123,7 @@ SRC = ROOT / "src"
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12     # dense bf16 on the tensor cores
+PEAK_TF32_FLOPS = 495e12     # dense TF32 on the tensor cores
 
 MAIN_P = 1_663_370          # CNNTask() parameters: the paper's full-width CNN
 MAIN_SLOTS = 512            # DagFLConfig.capacity
@@ -2575,21 +2582,66 @@ def wkv_inputs(gen, B, T, H, hd, dtype, decay, nonzero_state):
 
 
 def wkv_bound(B, T, H, hd, esize):
-    """(ms, what bounds it, its three parts): the bytes (r, k, v, u in their
-    type; logw, both states and y in f32) over the memory rate; the f32
-    operations of the chunked form (scores 3 a pair and channel, bonus,
-    A v, r_dec S, the state update) over the f32 peak; its exponentials
-    (masked pairs, both decays, e^total) over the special-function rate."""
-    C = 32
+    """(ms, what bounds it, its parts) of the chunked route: the bytes (r, k,
+    v, u in their type; logw, both states and y in f32) over the memory
+    rate; its products on the tensor cores (r_dec S, k_dec^T v and the
+    factorised score blocks below the diagonal of the sub-chunks of 8) at
+    the TF32 rate; the direct pairs inside the sub-chunks, the bonus and A v
+    on the CUDA cores at the f32 rate; the exponentials the factorised form
+    needs (both decays, e^total, the blocks' factors, the direct pairs) at
+    the special-function rate. The PR 21 bound, every score direct and every
+    product on the CUDA cores, is kept beside them as ``old_*``."""
+    C, SUB = 32, 8
     nc = T // C
-    pairs = C * (C - 1) // 2
+    pairs = C * (C - 1) // 2                          # 496 strictly lower (t, s)
+    inner = (C // SUB) * SUB * (SUB - 1) // 2         # 112 inside the sub-chunks
+    cross = pairs - inner                             # 384 in the factorised blocks
+    heads = B * H * nc
     nbytes = (3 * esize + 8) * B * T * H * hd + esize * H * hd + 8 * B * H * hd * hd
-    flops = B * H * nc * (3 * pairs * hd + 3 * C * hd + C * (C + 1) * hd + 4 * C * hd * hd)
-    exps = B * H * nc * (pairs * hd + 2 * C * hd + hd)
+    tf32_flops = heads * (4 * C * hd * hd + 2 * cross * hd)
+    f32_flops = heads * (3 * inner * hd + 3 * C * hd + C * (C + 1) * hd)
+    factors = (C - SUB) * hd + sum(SUB * n for n in range(1, C // SUB)) * hd
+    exps = heads * ((2 * C + 1) * hd + factors + inner * hd)
+    old_flops = heads * (3 * pairs * hd + 3 * C * hd + C * (C + 1) * hd + 4 * C * hd * hd)
+    old_exps = heads * (pairs * hd + 2 * C * hd + hd)
     parts = {"bytes_ms": 1e3 * nbytes / PEAK_BYTES_PER_S,
-             "f32_ops_ms": 1e3 * flops / PEAK_F32_FLOPS, "exp_ms": 1e3 * exps / PEAK_EXP_PER_S}
+             "tf32_ms": 1e3 * tf32_flops / PEAK_TF32_FLOPS,
+             "f32_ops_ms": 1e3 * f32_flops / PEAK_F32_FLOPS,
+             "exp_ms": 1e3 * exps / PEAK_EXP_PER_S}
+    ms = max(parts.values())
+    old = {"old_f32_ops_ms": 1e3 * old_flops / PEAK_F32_FLOPS,
+           "old_exp_ms": 1e3 * old_exps / PEAK_EXP_PER_S}
+    old["old_bound_ms"] = max(parts["bytes_ms"], *old.values())
+    return ms, ("bytes" if parts["bytes_ms"] == ms else "operations"), {**parts, **old}
+
+
+def wkv_scan_bound(B, T, H, hd, esize):
+    """(ms, what bounds it, its parts) of the sequential route: the bytes (r,
+    k, v, u in their type; logw and y in f32; the state read once and
+    written once) over the memory rate; its f32 operations (k v, S + u k v,
+    the r dot and w S + k v: 7 a state entry a step) over the f32 peak; its
+    exponentials (w) over the special-function rate."""
+    nbytes = (3 * esize + 8) * B * T * H * hd + esize * H * hd + 8 * B * H * hd * hd
+    parts = {"bytes_ms": 1e3 * nbytes / PEAK_BYTES_PER_S,
+             "f32_ops_ms": 1e3 * 7 * B * T * H * hd * hd / PEAK_F32_FLOPS,
+             "exp_ms": 1e3 * B * T * H * hd / PEAK_EXP_PER_S}
     ms = max(parts.values())
     return ms, ("bytes" if parts["bytes_ms"] == ms else "operations"), parts
+
+
+def wkv_errors(got, args, plain, tol, label, name):
+    """Largest error of ``got`` (y, state) against ``plain`` run in f32 on
+    the same inputs, relative to ``plain`` on the absolute values; checked
+    within ``tol``."""
+    r, k, v, logw, u, s0 = args
+    want = plain(r.float(), k.float(), v.float(), logw, u.float(), s0)
+    scale = plain(r.float().abs(), k.float().abs(), v.float().abs(), logw, u.float().abs(),
+                  s0.abs())
+    err = [(g - w).abs() for g, w in zip(got, want)]
+    over = max(float((e / sc).max()) for e, sc in zip(err, scale))
+    check(over <= tol, f"{name}: kernel off its {label} version by {over} of the scale")
+    return {f"max_abs_err_vs_{label}": max(float(e.max()) for e in err),
+            f"max_err_over_scale_vs_{label}": over}
 
 
 def wkv_case(wm, name, B, T, H, hd, dtype, decay, nonzero_state, gen, reps, plain_calls=1):
@@ -2601,21 +2653,10 @@ def wkv_case(wm, name, B, T, H, hd, dtype, decay, nonzero_state, gen, reps, plai
     got, again = wm.wkv(*args), wm.wkv(*args)
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(got, again)), f"wkv {name}: two calls differ")
-    r, k, v, logw, u, s0 = args
-    f32 = (r.float(), k.float(), v.float(), logw, u.float(), s0)
-    scale = wm.wkv_chunked_plain(r.float().abs(), k.float().abs(), v.float().abs(), logw,
-                                 u.float().abs(), s0.abs())
-    errs = {}
-    for label, plain, tol in (("plain", wm.wkv_chunked_plain, WKV_TOL),
-                              ("scan", wm.wkv_scan_plain, WKV_SCAN_TOL)):
-        want = plain(*f32)
-        err = [(g - w).abs() for g, w in zip(got, want)]
-        over = max(float((e / sc).max()) for e, sc in zip(err, scale))
-        errs[f"max_abs_err_vs_{label}"] = max(float(e.max()) for e in err)
-        errs[f"max_err_over_scale_vs_{label}"] = over
-        check(over <= tol, f"wkv {name}: kernel off its {label} version by {over} of the scale")
-        del want, err
-    del got, again, scale, f32
+    r = args[0]
+    errs = {**wkv_errors(got, args, wm.wkv_chunked_plain, WKV_TOL, "plain", f"wkv {name}"),
+            **wkv_errors(got, args, wm.wkv_scan_plain, WKV_SCAN_TOL, "scan", f"wkv {name}")}
+    del got, again
     ms = device_ms(wm.wkv, [args] * reps, warmup=1)
     # the plain version's thousands of launches outlast any spin: the host in the loop
     plain_ms = call_ms(wm.wkv_chunked_plain, [args] * plain_calls, warmup=plain_calls - 1)
@@ -2627,11 +2668,69 @@ def wkv_case(wm, name, B, T, H, hd, dtype, decay, nonzero_state, gen, reps, plai
             "reps": reps}
 
 
-def phase_wkv_kernel(wm):
-    """Phase 1j: the WKV kernel at rwkv6-7b's shape (H 64, hd 64, bf16) for
-    an 8k prefill with the model's decays and with strong ones, in f32, one
-    chunk from a nonzero state, 32k (``prefill_32k``'s length at B 1), and an
-    odd f32 shape at hd 128; then the shapes it refuses."""
+def wkv_scan_case(wm, name, B, T, H, hd, dtype, decay, gen, reps):
+    """One shape of the sequential kernel from a nonzero state: y and the
+    final state against ``wkv_scan_plain`` run in f32 on the same inputs,
+    the same bits twice, in place (``out`` the state itself) the same bits
+    as out of place; then times of the kernel out of place and in place, the
+    plain version and the bound."""
+    args = wkv_inputs(gen, B, T, H, hd, dtype, decay, True)
+    got, again = wm.wkv_scan(*args), wm.wkv_scan(*args)
+    state = args[5].clone()
+    y_in, s_in = wm.wkv_scan(*args[:5], state, out=state)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)), f"wkv_scan {name}: two calls differ")
+    check(s_in is state and torch.equal(y_in, got[0]) and torch.equal(state, got[1]),
+          f"wkv_scan {name}: in place differs from out of place")
+    errs = wkv_errors(got, args, wm.wkv_scan_plain, WKV_TOL, "plain", f"wkv_scan {name}")
+    del got, again, y_in
+    ms = device_ms(wm.wkv_scan, [args] * reps, warmup=1)
+    ms_in_place = device_ms(lambda *a: wm.wkv_scan(*a, out=a[5]), [(*args[:5], state)] * reps,
+                            warmup=1)
+    plain_ms = call_ms(wm.wkv_scan_plain, [args] * 2, warmup=1)
+    bound_ms, bound_by, parts = wkv_scan_bound(B, T, H, hd, args[0].element_size())
+    return {"case": name, "B": B, "T": T, "H": H, "hd": hd, "decay": decay,
+            "dtype": str(dtype).removeprefix("torch."), **errs, "ms": ms,
+            "ms_in_place": ms_in_place, "ms_per_step": ms / T, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by, **parts,
+            "reps": reps}
+
+
+def wkv_kernel_resources(cuda_build, wm):
+    """Registers, spills and stack of each WKV kernel, from nvcc's
+    -Xptxas=-v report in the build log, and the dynamic shared memory its
+    launcher asks for (``wkv_smem_bytes`` of the library)."""
+    import re
+
+    log = cuda_build.library_path(cuda_build.CSRC / "wkv.cu").with_suffix(".log")
+    out, name = {}, None
+    for line in log.read_text().splitlines():
+        entry = re.search(r"Compiling entry function '\S*?\d(wkv_[a-z]+_kernel)I(13__nv_bfloat16|f)"
+                          r"Li(\d+)E", line)
+        if entry:
+            dtype = "f32" if entry.group(2) == "f" else "bf16"
+            name = f"{entry.group(1)}<{dtype}, {entry.group(3)}>"
+            kernel = ("wkv_state_kernel", "wkv_intra_kernel", "wkv_scan_kernel").index(
+                entry.group(1))
+            out[name] = {"dynamic_smem": wm._library().wkv_smem_bytes(
+                kernel, int(dtype == "bf16"), int(entry.group(3)))}
+        elif name and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                                      r"(\d+) bytes spill loads", line)):
+            out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out[name]["registers"] = int(m.group(1))
+    check(len(out) == 12, f"the WKV build log names {len(out)} kernels, not 12: {sorted(out)}")
+    return out
+
+
+def phase_wkv_kernel(wm, cuda_build):
+    """Phase 1j: the chunked route at rwkv6-7b's shape (H 64, hd 64, bf16)
+    for an 8k prefill with the model's decays and with strong ones, in f32,
+    one chunk from a nonzero state, 32k (``prefill_32k``'s length at B 1),
+    and an odd f32 shape at hd 128; the sequential route at rwkv6-7b's
+    decode step (B 128, T 1) and an odd f32 shape at hd 128 (T 9, strong
+    decays); then the shapes each refuses, and the kernels' resources."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(21)
     cases = [
@@ -2644,16 +2743,23 @@ def phase_wkv_kernel(wm):
         wkv_case(wm, "odd_f32_hd128", 3, 96, 5, 128, torch.float32, "strong", True, gen, reps=20),
     ]
     torch.cuda.empty_cache()
+    scan_cases = [
+        wkv_scan_case(wm, "decode", 128, 1, 64, 64, torch.bfloat16, "model", gen, reps=40),
+        wkv_scan_case(wm, "odd_f32_hd128", 3, 9, 5, 128, torch.float32, "strong", gen, reps=40),
+    ]
+    torch.cuda.empty_cache()
     r, k, v, logw, u, s0 = wkv_inputs(gen, 1, 64, 2, 64, torch.float32, "model", False)
-    for bad in ((r[:, :48], k[:, :48], v[:, :48], logw[:, :48], u, s0),
-                (r[..., :32], k[..., :32], v[..., :32], logw[..., :32], u[:, :32],
-                 s0[:, :, :32, :32])):
-        try:
-            wm.wkv(*bad)
-            check(False, "a length or head dim the WKV kernel does not take was not refused")
-        except ValueError:
-            pass
-    return cases
+    for fn, bad in ((wm.wkv, (r[:, :48], k[:, :48], v[:, :48], logw[:, :48], u, s0)),
+                    (wm.wkv_scan, (r[:, :0], k[:, :0], v[:, :0], logw[:, :0], u, s0))):
+        for args in (bad, (r[..., :32], k[..., :32], v[..., :32], logw[..., :32], u[:, :32],
+                           s0[:, :, :32, :32])):
+            try:
+                fn(*args)
+                check(False, f"a length or head dim {fn.__name__} does not take was not refused")
+            except ValueError:
+                pass
+    return {"chunked": cases, "scan": scan_cases,
+            "resources": wkv_kernel_resources(cuda_build, wm)}
 
 
 def phase_rwkv_path(cuda_build):
@@ -2665,8 +2771,9 @@ def phase_rwkv_path(cuda_build):
     an f32 twin of the same draws at RWKV_TWIN_PREFILL tokens: within the
     reference's 2e-2); (b) decode at B = RWKV_DECODE_BATCH from (a)'s state in every
     slot, then a profiled window; (c) the ``SlotServer``. Every prefill or
-    forward of a multiple of 32 tokens launches the WKV kernel once a
-    layer; decode never does."""
+    forward of a multiple of 32 tokens launches the chunked WKV kernel once
+    a layer and the sequential one never; every decode step launches the
+    sequential one once a layer and the chunked one never."""
     from repro_torch.configs import get_arch
     from repro_torch.launch.serve import Request, SlotServer, serve
     from repro_torch.models import build_model
@@ -2690,9 +2797,11 @@ def phase_rwkv_path(cuda_build):
     gen.manual_seed(22)
     total = collections.Counter()
 
-    def launched(what, expect):
+    def launched(what, expect, expect_scan=0):
         got = cuda_build.LAUNCHES.get("wkv", 0)
         check(got == expect, f"{what}: wkv launched {got} times, expected {expect}")
+        got = cuda_build.LAUNCHES.get("wkv_scan", 0)
+        check(got == expect_scan, f"{what}: wkv_scan launched {got} times, expected {expect_scan}")
         total.update(cuda_build.LAUNCHES)
         cuda_build.LAUNCHES.clear()
 
@@ -2718,7 +2827,7 @@ def phase_rwkv_path(cuda_build):
         for i in range(S - n, S):
             step, cache = m.decode_step(p, tokens[:, i:i + 1], cache)
             got.append(step[0, 0].float())
-        launched(f"{label} decode steps", 0)
+        launched(f"{label} decode steps", 0, L * n)
         return want, torch.stack(got), forward_s
 
     # (a) prefill and forward of 8,192 tokens; decode against forward, in bf16
@@ -2772,7 +2881,7 @@ def phase_rwkv_path(cuda_build):
         (step, states), s = timed(model.decode_step, params, tok, states)
         tok = torch.argmax(step[:, 0], dim=-1, keepdim=True)
         step_ms.append(1e3 * s)
-    launched("B = 128 decode steps", 0)
+    launched("B = 128 decode steps", 0, L * RWKV_DECODE_STEPS)
     check(bool(torch.isfinite(step).all()) and step.shape == (B, 1, V), "decode logits not finite")
     steady = step_ms[1:]
     out["b_decode"] = {
@@ -2791,8 +2900,12 @@ def phase_rwkv_path(cuda_build):
             tok = torch.argmax(step[:, 0], dim=-1, keepdim=True)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t)
-    launched("profiled decode steps", 0)
-    out["b_profile_decode"] = {"steps": RWKV_PROFILED_STEPS, **trace_summary(prof, wall_ms)}
+    launched("profiled decode steps", 0, L * RWKV_PROFILED_STEPS)
+    summary = trace_summary(prof, wall_ms)
+    if isinstance(summary.get("device_busy_ms"), float):
+        summary["device_ms_per_step"] = summary["device_busy_ms"] / RWKV_PROFILED_STEPS
+        summary["device_ops_per_step"] = summary["device_ops"] / RWKV_PROFILED_STEPS
+    out["b_profile_decode"] = {"steps": RWKV_PROFILED_STEPS, **summary}
     del states, step, prof, cache, last
     torch.cuda.empty_cache()
 
@@ -2804,7 +2917,7 @@ def phase_rwkv_path(cuda_build):
     server = SlotServer(cfg, params, slots, prompt_len + max_new + 2)
     ticks, wall_s = timed(serve, server, queue)
     check(all(r.done and len(r.out) == max_new for r in queue), "a request did not complete")
-    launched("SlotServer", L * n_req)
+    launched("SlotServer", L * n_req, L * ticks)
     out["c_slot_server"] = {"slots": slots, "requests": n_req, "prompt_tokens": prompt_len,
                             "new_tokens": max_new, "ticks": ticks, "wall_s": wall_s,
                             "tokens_out": sum(len(r.out) for r in queue),
@@ -2815,10 +2928,11 @@ def phase_rwkv_path(cuda_build):
 
 def phase_small_rwkv_agreement():
     """Phase 3j: reduced rwkv6-7b (f32), the same parameters on the card and
-    on the CPU: forward and prefill of 96 tokens (the WKV kernel on the card,
-    its plain version on the CPU) and 4 decode steps, logits within 1e-4;
-    the ``SlotServer``'s tokens and ticks equal, with prompts of 32 tokens
-    (the kernel) and of 9 (the scan)."""
+    on the CPU: forward and prefill of 96 tokens (the chunked WKV kernel on
+    the card, its plain version on the CPU) and 4 decode steps (the
+    sequential kernel), logits within 1e-4; the ``SlotServer``'s tokens and
+    ticks equal, with prompts of 32 tokens (prefilled by the chunked kernel)
+    and of 9 (by the sequential one); both launch counts checked."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import cuda_build
     from repro_torch.launch.serve import Request, SlotServer, serve
@@ -2834,8 +2948,15 @@ def phase_small_rwkv_agreement():
                    - model.forward(cpu, tokens[:, :96])[0]).abs().max())
     caches = {device: model.prefill(params, tokens[:, :96])
               for device, params in (("cuda", card), ("cpu", cpu))}
-    check(cuda_build.LAUNCHES.get("wkv", 0) == 2 * cfg.num_layers,
-          f"3j: wkv launched {cuda_build.LAUNCHES.get('wkv', 0)} times")
+    L = cfg.num_layers
+
+    def launched(what, expect, expect_scan):
+        got = (cuda_build.LAUNCHES.get("wkv", 0), cuda_build.LAUNCHES.get("wkv_scan", 0))
+        check(got == (expect, expect_scan),
+              f"3j {what}: wkv, wkv_scan launched {got} times, expected {expect}, {expect_scan}")
+        cuda_build.LAUNCHES.clear()
+
+    launched("forward and prefill", 2 * L, 0)
     worst = max(worst, float((caches["cuda"][0].cpu() - caches["cpu"][0]).abs().max()))
     cg, cc = caches["cuda"][1], caches["cpu"][1]
     for step in range(4):
@@ -2844,6 +2965,7 @@ def phase_small_rwkv_agreement():
         lc, cc = model.decode_step(cpu, tok, cc)
         worst = max(worst, float((lg.cpu() - lc).abs().max()))
     check(worst <= 1e-4, f"3j: card and CPU logits differ by {worst}")
+    launched("decode steps", 0, 4 * L)
     servers = {}
     for prompt_len in (32, 9):
         outs = {}
@@ -2853,6 +2975,10 @@ def phase_small_rwkv_agreement():
                      for i in range(5)]
             server = SlotServer(cfg, params, 2, prompt_len + 8)
             outs[device] = (serve(server, queue), [r.out for r in queue])
+            if device == "cuda":                # 5 prefills, then one decode step a tick
+                chunked = prompt_len % 32 == 0
+                launched(f"SlotServer at {prompt_len}", 5 * L * chunked,
+                         5 * L * (not chunked) + L * outs["cuda"][0])
         check(outs["cuda"] == outs["cpu"], f"3j: SlotServer differs at {prompt_len}: {outs}")
         servers[f"prompt_{prompt_len}"] = {"ticks": outs["cuda"][0],
                                            "tokens": sum(len(o) for o in outs["cuda"][1])}
@@ -3060,8 +3186,9 @@ def main() -> int:
         print(json.dumps({"attention_cases": attention_cases}))
         print(f"[phase 1i] attention kernels vs plain: {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
-        wkv_cases = phase_wkv_kernel(wkv)
-        print(json.dumps({"wkv_cases": wkv_cases}))
+        wkv_phase = phase_wkv_kernel(wkv, cuda_build)
+        wkv_cases, wkv_scan_cases = wkv_phase["chunked"], wkv_phase["scan"]
+        print(json.dumps({"wkv_cases": wkv_phase}))
         print(f"[phase 1j] wkv kernel vs plain: {time.perf_counter() - t:.1f} s")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -3214,6 +3341,22 @@ def main() -> int:
         "bound_ms": wkv_main["bound_ms"],
         "bound_by": wkv_main["bound_by"],
         "library_ms": None,          # no single PyTorch call computes the WKV recurrence
+    })
+    scan_main = next(c for c in wkv_scan_cases if c["case"] == "decode")
+    kernels.append({
+        "name": "wkv_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/wkv.cu",
+        # replaces no Pallas kernel: the reference's decode runs wkv_scan, plain JAX
+        "replaces": "none (src/repro/models/rwkv.py:72, wkv_scan, plain JAX)",
+        "launches": rwkv_path["launches"].get("wkv_scan", 0),
+        "max_abs_err": max(c["max_abs_err_vs_plain"] for c in wkv_scan_cases),
+        "ms": scan_main["ms"],
+        "kernel_ms": scan_main["ms"],
+        "plain_ms": scan_main["plain_ms"],
+        "bound_ms": scan_main["bound_ms"],
+        "bound_by": scan_main["bound_by"],
+        "library_ms": None,          # no single PyTorch call computes the recurrence
     })
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

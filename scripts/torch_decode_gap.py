@@ -134,12 +134,13 @@ def rwkv_rows(model, params, tokens, S):
 
 def forward_rows(model, params, tokens, S, scan=False):
     """Forward's logits of S tokens at the last RWKV_STEPS + 1 positions;
-    with ``scan`` every layer's WKV through the sequential scan."""
+    with ``scan`` every layer's WKV through the sequential route
+    (``wkv_scan``: its kernel on the card)."""
     from repro_torch.kernels import wkv as wkv_kernels
     from repro_torch.models import rwkv as rwkv_lib
 
     if scan:
-        rwkv_lib.wkv = wkv_kernels.wkv_scan_plain
+        rwkv_lib.wkv = wkv_kernels.wkv_scan
     try:
         full, _ = model.forward(params, tokens[:, :S])
     finally:

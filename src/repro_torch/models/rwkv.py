@@ -8,9 +8,11 @@ The port of ``repro.models.rwkv``. Per head the WKV recurrence carries an
 
 ``w_t = exp(-exp(w0 + lora(x_t)))``. ``time_mix`` dispatches as the
 reference does: a sequence of ``T > 1`` steps with ``T`` a multiple of 32
-goes through ``kernels.wkv.wkv`` (the hand-written CUDA kernel on the card,
-``wkv_chunked_plain`` on the CPU); any other length, decode's single step
-included, through ``wkv_scan_plain``.
+goes through ``kernels.wkv.wkv`` (the chunked route of the hand-written CUDA
+kernel on the card, ``wkv_chunked_plain`` on the CPU); any other length,
+decode's single step included, through ``kernels.wkv.wkv_scan`` (its
+sequential route on the card, ``wkv_scan_plain`` on the CPU). Decode hands
+the cache's own WKV state as ``wkv_out``, so the scan updates it in place.
 
 Parameters are nested dicts of tensors; ``rwkv_block_init`` draws a stack of
 ``layers`` blocks at once (``(L, ...)`` tensors) from an explicit
@@ -25,7 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.wkv import CHUNK as WKV_CHUNK
-from repro_torch.kernels.wkv import wkv, wkv_scan_plain
+from repro_torch.kernels.wkv import wkv, wkv_scan
 from repro_torch.models.layers import _shape, dense_init, norm_apply, norm_init
 
 DECAY_LORA = 64
@@ -83,8 +85,11 @@ def _shift(x: torch.Tensor, first: torch.Tensor) -> torch.Tensor:
     return torch.cat([first[:, None, :], x[:, :-1, :]], dim=1)
 
 
-def time_mix(cfg: ModelConfig, p: dict, x: torch.Tensor, shift_in: torch.Tensor, wkv_state):
-    """x: (B, T, d). Returns (out, new shift (B, d), new wkv state)."""
+def time_mix(cfg: ModelConfig, p: dict, x: torch.Tensor, shift_in: torch.Tensor, wkv_state,
+             wkv_out=None):
+    """x: (B, T, d). Returns (out, new shift (B, d), new wkv state). With
+    ``wkv_out`` (which may be ``wkv_state`` itself) the new state is written
+    there and returned."""
     B, T, d = x.shape
     H, hd = rwkv_heads(cfg), cfg.rwkv_head_dim
     xx = _shift(x, shift_in)
@@ -107,8 +112,10 @@ def time_mix(cfg: ModelConfig, p: dict, x: torch.Tensor, shift_in: torch.Tensor,
 
     if T > 1 and T % WKV_CHUNK == 0:
         y, new_state = wkv(r, k, v, logw, p["bonus_u"], wkv_state)
+        if wkv_out is not None:
+            new_state = wkv_out.copy_(new_state)
     else:
-        y, new_state = wkv_scan_plain(r, k, v, logw, p["bonus_u"], wkv_state)
+        y, new_state = wkv_scan(r, k, v, logw, p["bonus_u"], wkv_state, out=wkv_out)
 
     # per-head group norm (population variance, as jnp.var)
     yf = y.float()
@@ -128,10 +135,11 @@ def channel_mix(cfg: ModelConfig, p: dict, x: torch.Tensor, shift_in: torch.Tens
     return torch.sigmoid(xr @ p["cm_r"]) * (k @ p["cm_v"]), x[:, -1, :]
 
 
-def rwkv_block_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
-                     state: RWKVState) -> Tuple[torch.Tensor, RWKVState]:
+def rwkv_block_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, state: RWKVState,
+                     wkv_out=None) -> Tuple[torch.Tensor, RWKVState]:
+    """One block. ``wkv_out``: where the new WKV state goes (``time_mix``)."""
     h = norm_apply("layernorm", p["ln_tm"], x)
-    tm_out, tm_shift, wkv_state = time_mix(cfg, p, h, state.tm_shift, state.wkv)
+    tm_out, tm_shift, wkv_state = time_mix(cfg, p, h, state.tm_shift, state.wkv, wkv_out)
     x = x + tm_out
     h = norm_apply("layernorm", p["ln_cm"], x)
     cm_out, cm_shift = channel_mix(cfg, p, h, state.cm_shift)

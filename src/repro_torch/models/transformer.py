@@ -167,7 +167,8 @@ class Model:
 
     def _run_rwkv(self, params, x, mode, states):
         """Returns (x, new cache or None, aux loss 0). In decode ``states``
-        is the stacked cache, written in place; otherwise every layer starts
+        is the stacked cache, written in place (the WKV state by the scan
+        itself, the two shift rows by a copy); otherwise every layer starts
         from zeros."""
         cfg = self.cfg
         x = norm_apply("layernorm", params["embed_norm"], x)
@@ -176,10 +177,11 @@ class Model:
         new_states = []
         for i in range(cfg.num_layers):
             st = rwkv_lib.RWKVState(*(leaf[i] for leaf in states)) if mode == "decode" else zero
-            x, new = rwkv_lib.rwkv_block_apply(cfg, _layer(params["layers"], i), x, st)
+            x, new = rwkv_lib.rwkv_block_apply(cfg, _layer(params["layers"], i), x, st,
+                                               wkv_out=st.wkv if mode == "decode" else None)
             if mode == "decode":
-                for dst, src in zip(st, new):
-                    dst.copy_(src)
+                st.tm_shift.copy_(new.tm_shift)
+                st.cm_shift.copy_(new.cm_shift)
             elif mode == "prefill":
                 new_states.append(new)
         new_cache = None

@@ -64,16 +64,21 @@ and bitwise against itself from call to call; the plain versions are held
 against the reference in ``tests/test_torch_attention.py``, the bf16
 route's arithmetic in ``tests/test_torch_attention_split.py``.
 
-The RWKV6 WKV recurrence, ``kernels/wkv.py``: y and the final state are
-held within 1e-5 of the same function on the absolute values of r, k, v, u
-and the state (the decays are positive, so that is each output's sum of
-absolute terms) against ``wkv_chunked_plain`` run in f32 on the same inputs,
-and within 5e-4 of it against the sequential ``wkv_scan_plain``, from which
-the chunked form itself lies up to 1.1e-4 away when decays are wide
-(``cum_prev[t] - cum[s]`` cancels); f32 and bf16, hd 64 and 128, model-like,
-strong and wide decays, a nonzero initial state, strided views, state
-carried across calls, and bitwise against itself from call to call. The
-plain versions are held against the reference in ``tests/test_torch_wkv.py``.
+The RWKV6 WKV recurrence, ``kernels/wkv.py``, two routes of one source. The
+chunked route (``wkv``): y and the final state are held within 1e-5 of the
+same function on the absolute values of r, k, v, u and the state (the
+decays are positive, so that is each output's sum of absolute terms)
+against ``wkv_chunked_plain`` run in f32 on the same inputs, and within
+5e-4 of it against the sequential ``wkv_scan_plain``, from which the
+chunked form itself lies up to 1.1e-4 away when decays are wide
+(``cum_prev[t] - cum[s]`` cancels); f32 and bf16, hd 64 and 128,
+model-like, strong and wide decays, a nonzero initial state, strided views,
+state carried across calls, and bitwise against itself from call to call.
+The sequential route (``wkv_scan``): within 1e-5 of ``wkv_scan_plain`` on
+the same bar, any T >= 1, bitwise from call to call, and in place (``out``
+the state itself) bitwise equal to out of place. The plain versions are
+held against the reference in ``tests/test_torch_wkv.py``, the chunked
+route's split TF32 arithmetic in ``tests/test_torch_wkv_split.py``.
 """
 import numpy as np
 import pytest
@@ -864,11 +869,51 @@ def test_wkv_wrapper_refuses_what_the_kernel_does_not_take():
     assert source.exists() and "arch=compute_90a,code=sm_90a" in cmd and cmd[-1] == str(source)
 
 
+def test_wkv_scan_wrapper_refuses_what_the_kernel_does_not_take():
+    gen = torch.Generator().manual_seed(1)
+    args = wkv_inputs(gen, 2, 9, 2, 64, torch.float32, "model", "cpu")
+    t_wkv._check(*args, chunked=False)
+    r, k, v, logw, u, s0 = args
+    t_wkv._check(r[:, :1], k[:, :1], v[:, :1], logw[:, :1], u, s0, chunked=False)
+    with pytest.raises(ValueError, match="not positive"):
+        t_wkv._check(r[:, :0], k[:, :0], v[:, :0], logw[:, :0], u, s0, chunked=False)
+    with pytest.raises(ValueError, match="wkv_scan: head dim"):
+        t_wkv._check(r[..., :32], k[..., :32], v[..., :32], logw[..., :32], u[:, :32],
+                     s0[:, :, :32, :32], chunked=False)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        t_wkv._check(r.half(), k.half(), v.half(), logw, u.half(), s0, chunked=False)
+    for bad in (s0[:1], s0.double(), s0.transpose(2, 3)):
+        with pytest.raises(ValueError, match="out must be"):
+            t_wkv.wkv_scan(*args, out=bad)
+    before = cuda_build.LAUNCHES[t_wkv.SCAN_NAME]
+    t_wkv.wkv_scan(*args)
+    assert cuda_build.LAUNCHES[t_wkv.SCAN_NAME] == before
+
+
+@pytest.mark.cuda
+def test_wkv_wrappers_refuse_on_the_card(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    r, k, v, logw, u, s0 = wkv_inputs(gen, 1, 64, 2, 64, torch.float32, "model", cuda)
+    before = dict(cuda_build.LAUNCHES)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        t_wkv.wkv(r[:, :48], k[:, :48], v[:, :48], logw[:, :48], u, s0)
+    for fn in (t_wkv.wkv, t_wkv.wkv_scan):
+        with pytest.raises(ValueError, match="head dim"):
+            fn(r[..., :32], k[..., :32], v[..., :32], logw[..., :32], u[:, :32],
+               s0[:, :, :32, :32])
+        with pytest.raises(ValueError, match="logw and state"):
+            fn(r, k, v, logw.bfloat16(), u, s0)
+    with pytest.raises(ValueError, match="out must be"):
+        t_wkv.wkv_scan(r, k, v, logw, u, s0, out=s0.cpu())
+    assert dict(cuda_build.LAUNCHES) == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T,H,hd,decay", [
     (1, 32, 4, 64, "model"), (2, 256, 3, 64, "model"), (1, 96, 2, 128, "strong"),
     (2, 64, 2, 64, "wide"), (3, 1024, 2, 64, "strong"), (1, 160, 5, 128, "model"),
+    (1, 512, 64, 64, "model"), (2, 128, 3, 128, "wide"),
 ])
 def test_wkv_kernel_on_card(cuda, dtype, B, T, H, hd, decay):
     gen = torch.Generator(device=cuda).manual_seed(T + H + hd)
@@ -895,3 +940,43 @@ def test_wkv_kernel_reads_strided_views_and_carries_state(cuda):
     y1, mid = t_wkv.wkv(r[:, :64], k[:, :64], v[:, :64], logw[:, :64], u, s0)
     y2, end = t_wkv.wkv(r[:, 64:], k[:, 64:], v[:, 64:], logw[:, 64:], u, mid)
     assert torch.equal(torch.cat([y1, y2], dim=1), got[0]) and torch.equal(end, got[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,hd,decay", [
+    (1, 1, 4, 64, "model"), (3, 9, 2, 128, "strong"), (2, 33, 3, 64, "wide"),
+    (8, 1, 2, 128, "model"), (128, 1, 8, 64, "model"), (2, 5, 4, 64, "strong"),
+    (1, 64, 2, 128, "wide"),
+])
+def test_wkv_scan_kernel_on_card(cuda, dtype, B, T, H, hd, decay):
+    gen = torch.Generator(device=cuda).manual_seed(B + T + H + hd)
+    args = wkv_inputs(gen, B, T, H, hd, dtype, decay, cuda)
+    before = cuda_build.LAUNCHES[t_wkv.SCAN_NAME]
+    got, again = t_wkv.wkv_scan(*args), t_wkv.wkv_scan(*args)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES[t_wkv.SCAN_NAME] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert_wkv_close(got, args, t_wkv.wkv_scan_plain, WKV_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,hd", [(16, 1, 64, 64), (3, 9, 2, 128)])
+def test_wkv_scan_kernel_in_place_equals_out_of_place(cuda, dtype, B, T, H, hd):
+    """``out`` the state itself: the state is updated in place, bitwise as
+    a fresh output; the model's strided (B, T, H, hd) views read in place."""
+    gen = torch.Generator(device=cuda).manual_seed(B * T + hd)
+    r, k, v, logw, u, s0 = wkv_inputs(gen, B, T, H, hd, dtype, "model", cuda)
+    y, s = t_wkv.wkv_scan(r, k, v, logw, u, s0)
+    kept = s0.clone()
+    other = torch.empty_like(s0)
+    y2, s2 = t_wkv.wkv_scan(r, k, v, logw, u, s0, out=other)
+    assert s2 is other and torch.equal(s0, kept) and torch.equal(s2, s) and torch.equal(y2, y)
+    state = s0.clone()
+    y3, s3 = t_wkv.wkv_scan(r, k, v, logw, u, state, out=state)
+    assert s3 is state and torch.equal(state, s) and torch.equal(y3, y)
+    wide = torch.zeros((B, T, H, 3 * hd), dtype=dtype, device=cuda)
+    wide[..., :hd], wide[..., hd:2 * hd], wide[..., 2 * hd:] = r, k, v
+    got = t_wkv.wkv_scan(wide[..., :hd], wide[..., hd:2 * hd], wide[..., 2 * hd:], logw, u, s0)
+    assert torch.equal(got[0], y) and torch.equal(got[1], s)

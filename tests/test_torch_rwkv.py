@@ -9,8 +9,9 @@ layers, d 256, 4 heads of 64, f32). Block outputs agree within 1e-5 and
 logits within 1e-4 (rtol and atol: sums in other orders; the model's decays
 are mild, so the chunked WKV's cancellation stays far below that, see
 ``tests/test_torch_wkv.py``). A length that is a multiple of 32 takes the
-chunked WKV (the kernel's path on a card), any other length and decode the
-sequential scan. The SlotServer's greedy tokens are compared only where
+chunked WKV (its kernel's path on a card), any other length and decode the
+sequential one (``wkv_scan``, its own kernel on a card; a spy shows the
+route). The SlotServer's greedy tokens are compared only where
 every argmax the reference takes has a top-2 logit gap above 1e-4.
 """
 import dataclasses
@@ -135,6 +136,35 @@ def test_time_mix_matches_reference(pair, T, seed):
     want = j_rwkv.time_mix(J_CFG, jl, jnp.asarray(x), jnp.asarray(shift), jnp.asarray(wkv))
     for g, w in zip(got, want):
         close(g, w, LAYER_TOL)
+
+
+@pytest.mark.parametrize("T,chunked", [(1, False), (9, False), (64, True)])
+def test_time_mix_dispatches_each_length_to_its_route(pair, T, chunked, monkeypatch):
+    """T a positive multiple of 32 (T > 1) goes through ``wkv``, any other
+    length through ``wkv_scan`` (the sequential kernel on a card), as the
+    reference dispatches; ``wkv_out`` reaches the scan as its ``out``."""
+    _, tl = layer0(pair[1], pair[3])
+    calls = []
+
+    def spy(name, fn):
+        def wrapped(*args, **kwargs):
+            calls.append((name, kwargs.get("out")))
+            return fn(*args, **kwargs)
+        return wrapped
+
+    monkeypatch.setattr(t_rwkv, "wkv", spy("wkv", t_rwkv.wkv))
+    monkeypatch.setattr(t_rwkv, "wkv_scan", spy("wkv_scan", t_rwkv.wkv_scan))
+    x = np.random.default_rng(T).standard_normal((2, T, CFG.d_model)).astype(np.float32)
+    shift, _, wkv = random_state(T + 40, 2)
+    state = torch.from_numpy(wkv)
+    out = torch.empty_like(state)
+    _, _, new = t_rwkv.time_mix(CFG, tl, torch.from_numpy(x), torch.from_numpy(shift), state,
+                                wkv_out=out)
+    if chunked:
+        assert calls == [("wkv", None)]
+    else:
+        assert calls == [("wkv_scan", out)]
+    assert new is out and torch.equal(state, torch.from_numpy(wkv))
 
 
 @pytest.mark.parametrize("T,seed", [(64, 4), (5, 5), (1, 6)])

@@ -19,13 +19,19 @@ so an output that cancels to near 0 is held to the size of what it sums.
   state (the Pallas kernel starts there and returns only y), within 1e-4.
 - The chunked plain version against the sequential one within 5e-4 (the
   reference's own bound for its pair; up to 1.1e-4 seen with wide decays).
+- The sequential dispatcher ``wkv_scan`` on CPU tensors against
+  ``repro.models.rwkv.wkv_scan`` within 1e-5 for T = 1 (decode), 9 and 33
+  (lengths the chunked form does not take), and its ``out``: the state goes
+  into ``out`` and is returned, and the ``state`` passed in is unchanged
+  when ``out`` is another tensor (``out`` may be ``state`` itself).
 
 Inputs are drawn with numpy from fixed seeds: r, k and v standard normal,
 u uniform in [0, 1), the state standard normal, and log decays
 ``-exp(N)`` in three spreads: the model's (``-exp(-1 + 0.3 N)``), strong
 (``-exp(min(2 + N, 10))``, the model's clamp) and wide (``-exp(2 N)``, the
-reference's ``test_wkv_chunked_equals_scan``). The kernel itself runs only
-on a card: ``tests/test_torch_kernels.py::test_wkv_kernel_on_card``.
+reference's ``test_wkv_chunked_equals_scan``). The kernels themselves run only
+on a card: ``tests/test_torch_kernels.py::test_wkv_kernel_on_card`` and
+``test_wkv_scan_kernel_on_card``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -137,3 +143,27 @@ def test_plain_versions_take_bf16_inputs_and_return_f32():
         assert y.dtype == s.dtype == torch.float32
         want = fn(*[x.float() for x in bf])
         assert torch.equal(y, want[0]) and torch.equal(s, want[1])
+
+
+@pytest.mark.parametrize("T,decay", [(1, "model"), (9, "strong"), (33, "wide")])
+def test_scan_dispatcher_on_cpu_matches_reference(T, decay):
+    args = draw(20 + T, 2, T, 3, 64, decay)
+    y, s = t_wkv.wkv_scan(*torch_args(args))
+    jy, js = wkv_scan(*map(jnp.asarray, args))
+    sy, ss = scale_of(t_wkv.wkv_scan_plain, torch_args(args))
+    assert y.dtype == s.dtype == torch.float32 and y.shape == (2, T, 3, 64)
+    close(y, jy, sy, TOL)
+    close(s, js, ss, TOL)
+
+
+@pytest.mark.parametrize("T", [1, 9])
+def test_scan_dispatcher_writes_out(T):
+    r, k, v, logw, u, s0 = torch_args(draw(30 + T, 2, T, 2, 64))
+    kept = s0.clone()
+    want_y, want_s = t_wkv.wkv_scan_plain(r, k, v, logw, u, s0)
+    out = torch.full_like(s0, float("nan"))
+    y, s = t_wkv.wkv_scan(r, k, v, logw, u, s0, out=out)
+    assert s is out and torch.equal(out, want_s) and torch.equal(y, want_y)
+    assert torch.equal(s0, kept)
+    y2, s2 = t_wkv.wkv_scan(r, k, v, logw, u, s0, out=s0)        # in place
+    assert s2 is s0 and torch.equal(s0, want_s) and torch.equal(y2, want_y)
