@@ -93,7 +93,14 @@ against its chunked plain version and the sequential scan run in f32 on the
 same inputs, with the bound restated for the tensor cores beside PR 21's,
 and its sequential route at rwkv6-7b's decode step (B 128) and an odd f32
 shape at hd 128, T 9, against ``wkv_scan_plain``, out of place and in
-place, with each WKV kernel's registers and shared memory; 1f
+place, with each WKV kernel's registers and shared memory; 1d times the
+top-k kernel's two selections at the main shape (k = 32: rounds; 33: the
+bitwise search) and blocks of 1,024 beside the earlier cases and prints
+the codec kernels' registers and spills; 1e checks ``pop_head``'s pinned
+host mirror against the device words on every draw, times the pop and
+read back through it and through ``read_head``, adds Q either side of a
+pass of the cluster and a million slots, and prints the head kernel's
+registers, shared memory and cluster size; 1f
 also holds
 ``bin_index`` on the card against the CPU at every f32 edge and the
 sync-period multiples); the digest check (bank table against one payload,
@@ -1129,20 +1136,24 @@ def topk_case(dc, name, layout, case, k, gen, reps=40, with_base=True):
     library_ms = device_ms(library, [(d, min(k, layout.block)) for d in deltas])
     wrapper_call_ms = call_ms(dc.topk_leaves, args)
     # least bytes: payload (and base) read once, the masked delta written once,
-    # the leaf table read once; operations: the dense rank's compares
+    # the leaf table read once; operations: the selection's, at most 32
+    # integer steps a value (31 search steps or 2 k rounds, then the ties)
     nb, p = layout.num_blocks, layout.num_values
     nbytes = (8 if with_base else 4) * p + 4 * nb * layout.block + 16 * (len(layout.names) + 1)
-    return {"case": name, "k": k, "values": p, "blocks": nb, "leaves": len(layout.names),
-            "with_base": with_base, "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+    return {"case": name, "k": k, "block": layout.block, "values": p, "blocks": nb,
+            "leaves": len(layout.names), "with_base": with_base, "max_abs_err": max_abs_err,
+            "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "library": "torch.topk(|d|, k, dim=1) + scatter",
-            "call_ms": wrapper_call_ms,
-            **codec_bound(nbytes, nb * layout.block * layout.block)}
+            "call_ms": wrapper_call_ms, **codec_bound(nbytes, 32 * nb * layout.block)}
 
 
-def phase_codec_kernel(dc):
+def phase_codec_kernel(dc, cuda_build):
     """Phase 1d: both codec kernels at the main path's shape (the paper's
     CNN blocked leaf by leaf), a ragged model, all-zero blocks, exact halves,
-    ties with NaN and -0.0, k >= nnz and a 4x scale."""
+    ties with NaN and -0.0, k >= nnz and a 4x scale; top-k also at k = 32
+    and 33 on the main shape (the last k of the warp's rounds, the first of
+    its bitwise search) and in blocks of 1,024; then the kernels' registers
+    and spills."""
     from repro_torch.core.aggregation import leaf_shapes
     from repro_torch.fl.tasks import CNNTask
 
@@ -1171,9 +1182,16 @@ def phase_codec_kernel(dc):
         topk_case(dc, "k_ge_nnz", dense, "sparse", None, gen, with_base=False),
         topk_case(dc, "k_128", ragged, "random", 128, gen),
         topk_case(dc, "scale_4x", scale, "random", 8, gen, reps=20, with_base=False),
+        topk_case(dc, "main_k32", main, "random", 32, gen),
+        topk_case(dc, "main_k33", main, "random", 33, gen),
+        topk_case(dc, "block_1024", dc.dense_layout(MAIN_CODEC_BLOCKS // 8, 1024), "ties", 64,
+                  gen, with_base=False),
     ]
     torch.cuda.empty_cache()
-    return quant, topk
+    resources = kernel_resources(cuda_build, "delta_codec.cu",
+                                 ["quant_blocks_kernel"] + [f"topk_blocks_kernel<{v}>"
+                                                            for v in (1, 2, 4, 8, 16, 32)])
+    return quant, topk, resources
 
 
 def dedup_case(ck, name, r, s, c, classes, special, gen, reps=40):
@@ -1290,6 +1308,11 @@ def pop_case(ep, name, q, case, gen, draws=5, reps=200, cold=False):
         max_abs_err = int((got.long() - want.long()).abs().max())
         check(torch.equal(got, want), f"event_pop {name}: kernel {got.tolist()} != plain "
                                       f"{want.tolist()}")
+        idx, found, head_t, kind, head = ep.pop_head(*args)
+        mirror = [idx, int(found), int(np.float32(head_t).view(np.int32)), kind]
+        check(mirror == head.tolist() == want.tolist(),
+              f"event_pop {name}: pop_head's mirror {mirror}, its device words "
+              f"{head.tolist()}, plain {want.tolist()}")
     ms_hot = device_ms(ep.event_head, [args] * reps)
     ms_cold = None
     if cold:
@@ -1298,26 +1321,57 @@ def pop_case(ep, name, q, case, gen, draws=5, reps=200, cold=False):
     # the plain version launches about 15 kernels a call: 8 calls behind the spin
     plain_ms = device_ms(ep.event_head_plain, [args] * 8)
     # what the event loop pays per batch for its head: the launch, the
-    # read back and the host's own work
-    head_ms = call_ms(lambda *a: ep.read_head(ep.event_head(*a)), [args] * reps)
+    # read back and the host's own work; through the pinned mirror
+    # (pop_head, the loop's call) and through a copy (read_head)
+    head_ms = call_ms(ep.pop_head, [args] * reps)
+    read_head_ms = call_ms(lambda *a: ep.read_head(ep.event_head(*a)), [args] * reps)
     # least bytes: each slot's time, kind, seq (4 B each) and valid (1 B)
     # read once, the four output words written once; its compares are far less
     nbytes = EVENT_POP_BYTES_PER_SLOT * q + 16
     return {"case": name, "Q": q, "queue": case, "max_abs_err": max_abs_err,
             "ms": ms_hot if ms_cold is None else ms_cold, "ms_hot": ms_hot, "ms_cold": ms_cold,
-            "plain_ms": plain_ms, "pop_and_read_back_ms": head_ms, "library_ms": None,
+            "plain_ms": plain_ms, "pop_and_read_back_ms": head_ms,
+            "event_head_and_read_head_ms": read_head_ms, "library_ms": None,
+            "cluster_blocks": ep.cluster_blocks(q),
             "bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S, "bound_by": "bytes",
             "bound_bytes": nbytes}
 
 
-def phase_event_pop_kernel(ep):
+def kernel_resources(cuda_build, source, kernels):
+    """Registers, spills, stack and static shared memory of each of
+    ``kernels`` (``name`` or ``name<V>`` for a template on an int) in the
+    -Xptxas=-v report of ``source``'s build log."""
+    import re
+
+    log = cuda_build.library_path(cuda_build.CSRC / source).with_suffix(".log")
+    out, name = {}, None
+    for line in log.read_text().splitlines():
+        entry = re.search(r"Compiling entry function '\S*?\d([a-z_]+_kernel)(?:ILi(\d+)E)?", line)
+        if entry:
+            name = entry.group(1) + (f"<{entry.group(2)}>" if entry.group(2) else "")
+            out[name] = {}
+        elif name and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                                      r"(\d+) bytes spill loads", line)):
+            out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out[name]["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name]["static_smem"] = int(smem.group(1)) if smem else 0
+    check(set(kernels) <= set(out), f"{source}'s build log names {sorted(out)}, not {kernels}")
+    return {k: out[k] for k in kernels}
+
+
+def phase_event_pop_kernel(ep, cuda_build):
     """Phase 1e: the queue head at the engine's three queue sizes (the full
     overlay's 9,900 delivery slots; 19,800 with the bank's drain slots;
-    9,965 in the tip simulation) and the edge cases."""
+    9,965 in the tip simulation), the edge cases, the sizes either side of
+    a pass of the 8 x 1,024-thread cluster and a million slots; then the
+    kernel's registers, shared memory and cluster size at each Q."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
     q_tip = MAIN_NODES * (MAIN_NODES - 1) + TIP_SIM_PENDING + 1
-    return [
+    cases = [
         pop_case(ep, "deliver", MAIN_EDGES, "deliver", gen, cold=True),
         pop_case(ep, "bank", 2 * MAIN_EDGES, "bank", gen, cold=True),
         pop_case(ep, "tipsim", q_tip, "tipsim", gen, cold=True),
@@ -1328,7 +1382,12 @@ def phase_event_pop_kernel(ep):
         pop_case(ep, "q1", 1, "ties", gen, draws=20),
         pop_case(ep, "q70", 70, "ties", gen, draws=20),
         pop_case(ep, "q1025", 1025, "signed_zeros", gen, draws=20),
+        pop_case(ep, "q8191", 8191, "ties", gen, draws=20),
+        pop_case(ep, "q8193", 8193, "inf_nan", gen, draws=20),
+        pop_case(ep, "q1000003", 1_000_003, "ties", gen, reps=40),
     ]
+    return {"cases": cases,
+            "resources": kernel_resources(cuda_build, "event_pop.cu", ["event_pop_kernel"])}
 
 
 def check_same_floats(what, a, b):
@@ -3106,6 +3165,13 @@ def main() -> int:
         del bankless, bank_results
         print(json.dumps({"events_main_path": events_paths}))
         print(f"[phase 2e] events engine paths: {time.perf_counter() - t:.1f} s")
+        # profiled here, before the telemetry phases, after which the
+        # profiler loses device events: the head kernel's time in the loop
+        # and the host syncs a batch
+        print(json.dumps({"profile_events": phase_profile(
+            "run_dagfl_gossip",
+            label="run_dagfl_gossip(engine=events, 1 Mbit/s, 0.5 s links, int4)",
+            engine="events", **events_constrained_runs()["int4"])}))
         t = time.perf_counter()
         tip_sims = phase_tip_sims(cuda_build)
         print(json.dumps({"tip_sims": tip_sims}))
@@ -3126,10 +3192,6 @@ def main() -> int:
         rwkv_path = phase_rwkv_path(cuda_build)
         print(json.dumps({"rwkv_main_path": rwkv_path}))
         print(f"[phase 2j] rwkv6-7b served: {time.perf_counter() - t:.1f} s")
-        print(json.dumps({"profile_events": phase_profile(
-            "run_dagfl_gossip",
-            label="run_dagfl_gossip(engine=events, 1 Mbit/s, 0.5 s links, int4)",
-            engine="events", **events_constrained_runs()["int4"])}))
 
         small = phase_small_agreement()
         print(json.dumps({"small_agreement": small}))
@@ -3165,13 +3227,15 @@ def main() -> int:
         dedup_cases = phase_dedup_kernel(chunk_transfer)
         print(json.dumps({"dedup_cases": dedup_cases}))
         t = time.perf_counter()
-        quant_cases, topk_cases = phase_codec_kernel(delta_codec)
+        quant_cases, topk_cases, codec_resources = phase_codec_kernel(delta_codec, cuda_build)
         print(json.dumps({"quant_cases": quant_cases}))
         print(json.dumps({"topk_cases": topk_cases}))
+        print(json.dumps({"codec_resources": codec_resources}))
         print(f"[phase 1d] codec kernels vs plain: {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
-        pop_cases = phase_event_pop_kernel(event_pop)
-        print(json.dumps({"event_pop_cases": pop_cases}))
+        pop_phase = phase_event_pop_kernel(event_pop, cuda_build)
+        pop_cases = pop_phase["cases"]
+        print(json.dumps({"event_pop_cases": pop_phase}))
         print(f"[phase 1e] event_pop vs plain: {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
         hist_cases = phase_hist_kernel(hist_bincount)

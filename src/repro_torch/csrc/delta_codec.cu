@@ -32,19 +32,39 @@
 // writes 1.66 MB of codes and 52 KB of scales, 8.37 MB or 2.5 us at 3.35
 // TB/s, against about 10 M f32 operations (0.15 us): bytes. Top-k reads the
 // payload and the base (13.3 MB) and writes the masked delta (6.66 MB), 20
-// MB or 6.0 us, against 12,998 * 128 * 128 = 213 M rank compares (3.2 us
-// at 67 TFLOP/s): bytes.
+// MB or 6.0 us; its selection is a few integer operations a value a step:
+// bytes. A dense rank (128 compares a value, 213 M in all) made the first
+// design issue-bound at 56 us.
 //
 // Design. Quantisation: one warp per codec block; lanes stride the block
 // (lane l takes values l, l + 32, ...) so each load and each byte store of
 // the warp is one contiguous run; the amax is a warp shuffle reduction.
-// Top-k: one thread block per codec block, one thread per value; the block
-// stages its |d| in shared memory and each thread counts its rank in one
-// loop over the block (a dense rank, not a sort: ties go to the earlier
-// index by construction). The delta's subtraction (payload - base) is fused
-// into the load. Not carried over from the TPU: its padded (nb, 128) copy
-// of every leaf, its int32 codes cast to int8 outside, and its (8, 128,
-// 128) compare tensor per grid step.
+// Top-k: one warp per codec block too, the block's values in registers
+// (lane l holds values l, l + 32, ...: V = 1 to 32 a lane for blocks of up
+// to 1,024), ranked by selection, not by counting:
+//   - the key of a value is the bits of |d| plus one, an unsigned integer
+//     in the order of |d| (-0.0 is +0.0); a NaN, and a slot past the block,
+//     has key 0 and counts for no one. A NaN is kept (for k >= 1).
+//   - with k >= the block's non-NaN values everything is kept; with k = 0
+//     nothing. Otherwise the warp finds T, the k-th largest key. For k <=
+//     kRoundsMax and up to 8 values a lane, by rounds: each lane sorts its
+//     keys (an odd-even network), and a round takes the warp's largest
+//     head by one redux.sync max and drops it from every lane that holds
+//     it (a ballot counts them), so at most k rounds. Otherwise by a
+//     bitwise search, 31 steps of a per-lane count and one redux.sync add,
+//     keeping each bit that leaves at least k keys at or above it. A round
+//     costs about a quarter of the search's 31 steps at the main shape, so
+//     the rounds run up to k = 32. Either is a few warp instructions a
+//     step, shared by the 32 lanes, where the dense rank took 128
+//     compare-and-add steps a thread.
+//   - every key above T is kept, and of the keys equal to T the first
+//     k - (count above) in index order: a ballot per register slot gives
+//     each lane the count of equal keys before it; the rounds skip this
+//     when the keys equal to T are exactly the ones needed.
+// The delta's subtraction (payload - base) is fused into the load. Not
+// carried over from the TPU: its padded (nb, 128) copy of every leaf, its
+// int32 codes cast to int8 outside, and its (8, 128, 128) compare tensor
+// per grid step.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -105,29 +125,143 @@ __global__ void __launch_bounds__(kWarps * 32) quant_blocks_kernel(
   if (lane == 0) scales[b] = scale;
 }
 
-__global__ void topk_blocks_kernel(const float* __restrict__ x,
-                                   const float* __restrict__ base,
-                                   const int64_t* __restrict__ table, int leaves, int block,
-                                   int k, float* __restrict__ out) {
-  extern __shared__ float s_abs[];
-  const int64_t b = blockIdx.x;
+constexpr int kTopkWarps = 8;     // warps (each on its own codec block) per thread block
+constexpr int kRoundsMax = 32;    // k up to this, and up to 8 values a lane: rounds
+constexpr unsigned kFull = 0xffffffffu;
+
+// The k-th largest key of the warp, T (k >= 1, fewer than the warp's
+// nonzero keys), and how many of the keys equal to T are kept: those
+// first in index order, k - #{key > T}; all of them when `all_ties`.
+template <int V>
+__device__ __forceinline__ unsigned kth_key(const unsigned (&key)[V], int k, int& ties_kept,
+                                            bool& all_ties) {
+  if (V <= 8 && k <= kRoundsMax) {
+    // Rounds: each lane sorts its keys, largest first; a round takes the
+    // warp's largest head and drops it from every lane that holds it, so
+    // the keys leave in decreasing order, one round per key at most.
+    unsigned s[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) s[v] = key[v];
+#pragma unroll
+    for (int pass = 0; pass < V; ++pass) {
+#pragma unroll
+      for (int v = pass & 1; v + 1 < V; v += 2) {
+        const unsigned hi = max(s[v], s[v + 1]);
+        s[v + 1] = min(s[v], s[v + 1]);
+        s[v] = hi;
+      }
+    }
+    int taken = 0, above = 0;    // keys dropped; of them, above this round's key
+    unsigned last = kFull;
+    while (true) {
+      const unsigned m = __reduce_max_sync(kFull, s[0]);
+      if (m != last) {
+        above = taken;
+        last = m;
+      }
+      const bool hit = s[0] == m;
+      taken += __popc(__ballot_sync(kFull, hit));
+      if (hit) {
+#pragma unroll
+        for (int v = 0; v + 1 < V; ++v) s[v] = s[v + 1];
+        s[V - 1] = 0u;
+      }
+      if (taken >= k) {
+        ties_kept = k - above;
+        all_ties = taken == k && !__any_sync(kFull, s[0] == m);
+        return m;
+      }
+    }
+  }
+  // The bitwise search: T is the largest value with at least k keys at or
+  // above it, built from the top bit down (keys are below 2^31).
+  unsigned t = 0;
+#pragma unroll 1
+  for (int bit = 30; bit >= 0; --bit) {
+    const unsigned cand = t | (1u << bit);
+    int c = 0;
+#pragma unroll
+    for (int v = 0; v < V; ++v) c += key[v] >= cand;
+    if (__reduce_add_sync(kFull, c) >= k) t = cand;
+  }
+  int c = 0;
+#pragma unroll
+  for (int v = 0; v < V; ++v) c += key[v] > t;
+  ties_kept = k - __reduce_add_sync(kFull, c);
+  all_ties = false;
+  return t;
+}
+
+template <int V>
+__global__ void __launch_bounds__(kTopkWarps * 32) topk_blocks_kernel(
+    const float* __restrict__ x, const float* __restrict__ base,
+    const int64_t* __restrict__ table, int leaves, int64_t nb, int block, int k,
+    float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kTopkWarps + threadIdx.x / 32;
+  if (b >= nb) return;  // whole warps leave together
   const Span span = block_span(table, leaves, b, block);
-  const int i = threadIdx.x;
-  float d = 0.0f;
-  if (i < span.count) {
-    d = base != nullptr ? x[span.start + i] - base[span.start + i] : x[span.start + i];
+  const float* src = x + span.start;
+  const float* sub = base != nullptr ? base + span.start : nullptr;
+
+  float d[V];
+  unsigned key[V];
+  unsigned nan = 0;      // bit v: value v is NaN
+  int live = 0;          // this lane's nonzero keys
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const int i = lane + 32 * v;
+    float dv = 0.0f;   // padding past the leaf is +0.0, and ranks
+    if (i < span.count) dv = sub != nullptr ? src[i] - sub[i] : src[i];
+    d[v] = dv;
+    const unsigned a = __float_as_uint(dv) & 0x7fffffffu;
+    const bool in = i < block;
+    const bool is_nan = a > 0x7f800000u;
+    key[v] = in && !is_nan ? a + 1 : 0u;
+    nan |= static_cast<unsigned>(in && is_nan) << v;
+    live += key[v] != 0;
   }
-  if (i < block) s_abs[i] = fabsf(d);
-  __syncthreads();
-  if (i >= block) return;
-  const float a = s_abs[i];
-  int rank = 0;
-#pragma unroll 16
-  for (int j = 0; j < block; ++j) {
-    const float aj = s_abs[j];
-    rank += (aj > a) | ((aj == a) & (j < i));
+
+  unsigned keep = 0;     // bit v: value v is kept
+  if (k > 0) {
+    if (k >= __reduce_add_sync(kFull, live)) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) keep |= static_cast<unsigned>(key[v] != 0) << v;
+    } else {
+      int ties_kept;
+      bool all_ties;
+      const unsigned t = kth_key<V>(key, k, ties_kept, all_ties);
+      if (all_ties) {
+#pragma unroll
+        for (int v = 0; v < V; ++v) keep |= static_cast<unsigned>(key[v] >= t) << v;
+      } else {
+        const unsigned before = (1u << lane) - 1u;
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          const unsigned eq = __ballot_sync(kFull, key[v] == t);
+          const bool tie_kept = key[v] == t && __popc(eq & before) < ties_kept;
+          keep |= static_cast<unsigned>(key[v] > t || tie_kept) << v;
+          ties_kept -= __popc(eq);
+        }
+      }
+    }
+    keep |= nan;
   }
-  out[b * block + i] = rank < k ? d : 0.0f;
+
+  float* dst = out + b * block;
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const int i = lane + 32 * v;
+    if (i < block) dst[i] = (keep >> v) & 1u ? d[v] : 0.0f;
+  }
+}
+
+template <int V>
+void launch_topk(const float* x, const float* base, const int64_t* table, int leaves,
+                 long long nb, int block, int k, float* out, cudaStream_t stream) {
+  const long long grid = (nb + kTopkWarps - 1) / kTopkWarps;
+  topk_blocks_kernel<V><<<static_cast<unsigned>(grid), kTopkWarps * 32, 0, stream>>>(
+      x, base, table, leaves, nb, block, k, out);
 }
 
 cudaError_t check_args(int leaves, long long nb, int block) {
@@ -170,10 +304,22 @@ extern "C" int topk_blocks(const float* x, const float* base, const long long* t
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads = (block + 31) / 32 * 32;
-  topk_blocks_kernel<<<static_cast<unsigned>(nb), threads, block * sizeof(float),
-                       static_cast<cudaStream_t>(stream)>>>(
-      x, base, reinterpret_cast<const int64_t*>(table), leaves, block, k, out);
+  const auto* t = reinterpret_cast<const int64_t*>(table);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int per_lane = (block + 31) / 32;   // values a lane holds
+  if (per_lane <= 1) {
+    launch_topk<1>(x, base, t, leaves, nb, block, k, out, st);
+  } else if (per_lane <= 2) {
+    launch_topk<2>(x, base, t, leaves, nb, block, k, out, st);
+  } else if (per_lane <= 4) {
+    launch_topk<4>(x, base, t, leaves, nb, block, k, out, st);
+  } else if (per_lane <= 8) {
+    launch_topk<8>(x, base, t, leaves, nb, block, k, out, st);
+  } else if (per_lane <= 16) {
+    launch_topk<16>(x, base, t, leaves, nb, block, k, out, st);
+  } else {
+    launch_topk<32>(x, base, t, leaves, nb, block, k, out, st);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -55,7 +55,7 @@ from repro_torch.core.aggregation import Shapes, flatten_params, leaf_shapes
 from repro_torch.kernels import cuda_build
 
 BLOCK = 128                 # codec block length
-MAX_BLOCK = 1024            # the kernels' limit: one thread block of threads
+MAX_BLOCK = 1024            # the kernels' limit: top-k holds up to 32 values a lane of a warp
 PLAIN_SLAB = 1024           # blocks per (slab, block, block) compare in topk_blocks_plain
 QUANT_NAME = "quant_blocks"
 TOPK_NAME = "topk_blocks"

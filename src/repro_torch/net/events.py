@@ -202,10 +202,10 @@ class Head(NamedTuple):
 
 
 def _pop_head(qt, qkind, qseq, qv, horizon: float) -> Optional[Head]:
-    """One ``event_head`` launch and its one read back. None when the loop
-    stops: nothing valid, or the head past ``horizon``."""
-    head = pop_kernel.event_head(qt, qkind, qseq, qv)
-    idx, found, t, kind = pop_kernel.read_head(head)
+    """One ``pop_head``: the head kernel's launch and its one host sync (the
+    words come back through a pinned mirror). None when the loop stops:
+    nothing valid, or the head past ``horizon``."""
+    idx, found, t, kind, head = pop_kernel.pop_head(qt, qkind, qseq, qv)
     if not found or not _queue_head_due(t, horizon):
         return None
     return Head(idx, t, kind, head[2].view(torch.float32))

@@ -26,14 +26,20 @@ plain version is held against the reference in ``tests/test_torch_bank.py``.
 
 The event-queue head, ``kernels/event_pop.py``: an index, a flag, the head's
 time bits and kind, so the kernel must equal the plain version bitwise
-(``test_event_pop_kernel_on_card``), NaN and -0.0 included; the plain
-version is held against the reference in ``tests/test_torch_events.py``.
+(``test_event_pop_kernel_on_card``: Q either side of a block and of a pass
+of the thread block cluster, and a million slots), NaN and -0.0 included,
+and ``pop_head``'s pinned host mirror must equal the device words
+(``test_pop_head_mirror_on_card``); the plain version is held against the
+reference in ``tests/test_torch_events.py``, the kernel's fold in
+``tests/test_torch_event_pop_keys.py``.
 
 The wire codec, ``kernels/delta_codec.py``: codes, scales and masked deltas
 must equal the plain versions bitwise (``test_quant_kernel_on_card``,
-``test_topk_kernel_on_card``, ``test_encode_on_card_equals_the_cpu``); the
-plain versions are held against the reference in
-``tests/test_torch_codec.py``.
+``test_topk_kernel_on_card``, ``test_topk_kernel_dense_on_card``: blocks of
+32, 33 and 1,024, k from 0 to B, blocks all equal and all NaN;
+``test_encode_on_card_equals_the_cpu``); the plain versions are held
+against the reference in ``tests/test_torch_codec.py``, the top-k kernel's
+selection in ``tests/test_torch_topk_select.py``.
 
 The histogram bincount, ``kernels/hist_bincount.py``: integer sums, so the
 kernel must equal the plain version bitwise (``test_hist_bincount_kernel_on_card``),
@@ -495,6 +501,42 @@ def test_topk_kernel_on_card(cuda, sizes, case, k):
     assert same_bits(t_dc.topk_blocks(d, k), t_dc.topk_blocks_plain(d, k))
 
 
+def dense_topk_blocks(gen, nb, block, case, device):
+    """(nb, block) f32 deltas for the dense layouts: "random", "ties" (few
+    distinct magnitudes, NaN, -0.0 beside +0.0, subnormals and +inf),
+    "equal" (every value of a block the same), "nan" (every value NaN)."""
+    kw = dict(generator=gen, device=device)
+    if case == "random":
+        return torch.randn((nb, block), **kw)
+    if case == "equal":
+        return torch.randn((nb, 1), **kw).expand(nb, block).contiguous()
+    if case == "nan":
+        return torch.full((nb, block), float("nan"), device=device)
+    pick = torch.randint(0, 9, (nb, block), **kw)
+    values = torch.tensor([0.0, -0.0, 1.0, -1.0, 2.0, float("inf"), float("nan"),
+                           1e-45, -1e-40], device=device)
+    return values[pick]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block,case", [(32, "random"), (33, "ties"), (1024, "random"),
+                                        (1024, "ties"), (128, "equal"), (33, "equal"),
+                                        (128, "nan"), (1024, "nan")])
+def test_topk_kernel_dense_on_card(cuda, block, case):
+    """The dense layouts of ``test_topk_kernel_on_card``: blocks of 32, 33
+    and 1,024, k = 0, 1, 8, B - 1 and B (and the warp's two selections
+    either side of its 32), blocks all equal, all NaN."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(block)
+    d = dense_topk_blocks(gen, 37, block, case, cuda)
+    for k in sorted({0, 1, 8, 32, 33, block - 1, block}):
+        before = cuda_build.LAUNCHES[t_dc.TOPK_NAME]
+        got = t_dc.topk_blocks(d, k)
+        torch.cuda.synchronize()
+        assert cuda_build.LAUNCHES[t_dc.TOPK_NAME] == before + 1
+        assert same_bits(got, t_dc.topk_blocks_plain(d, k)), k
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["int8", "int4", "topk"])
 def test_encode_on_card_equals_the_cpu(cuda, kind):
@@ -552,10 +594,13 @@ def test_event_pop_wrapper_launches_nothing_off_the_card():
     assert source.exists() and "arch=compute_90a,code=sm_90a" in cmd and cmd[-1] == str(source)
 
 
+POP_CARD_CASES = [(1, "ties"), (70, "ties"), (1_025, "signed_zeros"), (8_191, "ties"),
+                  (8_192, "signed_zeros"), (8_193, "inf_and_nan"), (9_900, "ties"),
+                  (19_800, "signed_zeros"), (9_965, "inf_and_nan"), (1_000_003, "ties")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("q,times", [(1, "ties"), (70, "ties"), (1_025, "signed_zeros"),
-                                     (9_900, "ties"), (19_800, "signed_zeros"),
-                                     (9_965, "inf_and_nan")])
+@pytest.mark.parametrize("q,times", POP_CARD_CASES)
 def test_event_pop_kernel_on_card(cuda, q, times):
     rng = np.random.default_rng(q)
     for _ in range(5):
@@ -565,6 +610,25 @@ def test_event_pop_kernel_on_card(cuda, q, times):
         torch.cuda.synchronize()
         assert cuda_build.LAUNCHES["event_pop"] == before + 1
         assert torch.equal(got.cpu(), t_pop.event_head_plain(*(x.cpu() for x in args)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,times", POP_CARD_CASES)
+def test_pop_head_mirror_on_card(cuda, q, times):
+    """``pop_head``'s host words (the pinned mirror) equal its device words,
+    ``event_head``'s and the plain version's, on every draw; one launch a
+    call."""
+    rng = np.random.default_rng(q + 1)
+    for _ in range(5):
+        args = pop_queue(rng, q, POP_TIMES[times], cuda)
+        want = t_pop.event_head_plain(*(x.cpu() for x in args))
+        before = cuda_build.LAUNCHES["event_pop"]
+        idx, found, head_t, kind, head = t_pop.pop_head(*args)
+        assert cuda_build.LAUNCHES["event_pop"] == before + 1
+        words = torch.tensor([idx, int(found), 0, kind], dtype=torch.int32)
+        words[2] = torch.tensor([head_t], dtype=torch.float32).view(torch.int32)[0]
+        assert torch.equal(words, head.cpu()) and torch.equal(words, want)
+        assert torch.equal(t_pop.event_head(*args).cpu(), want)
 
 
 # ---------------------------------------------------------------------------
