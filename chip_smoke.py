@@ -82,7 +82,13 @@ builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (into
    prefilled by the sequential kernel), both launch counts checked.
 
 Phase 1 of the merge-winner, chunk-dedup, codec, event-queue, histogram,
-model-distance, attention and WKV kernels runs last, after phase 3 (1i
+model-distance, attention and WKV kernels runs last, after phase 3 (1b
+times the winner at density 0.5, the full overlay (every edge live, a ticks
+round) and an events batch of path (d) (1-4 live edges of
+``k_regular(100, 8)``, beside the live edges a batch that path (d) really
+had, counted on the device during 2e) among its cases, and 1c the dedup at
+its cases, the edge columns and a store past one hash table, each with the
+kernel's registers and shared memory; 1i
 times the prefill kernel at 8k, 32k, 32k with an 8k window, gemma-2b's MQA
 and an odd f32 shape, and the decode kernel at the 32k cache, ragged lengths
 with 0, 1 and S, gemma-2b's shape and f32, each against its plain version in
@@ -113,6 +119,7 @@ any failure, or where there is no CUDA card or no ``src/repro_torch``.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -355,43 +362,52 @@ def phase_kernels(fedavg):
     return cases
 
 
-def gossip_case(gm, name, r, rr, cap, offset, density, gen, reps=40):
+def gossip_case(gm, name, r, rr, cap, offset, density, gen, reps=40, masks=None):
     """One shape of the merge-winner kernel: bitwise against the plain
     version, then times. The state has key ties, equal times under other
-    publishers and rows nobody holds."""
+    publishers and rows nobody holds. ``masks``, where given, replace the
+    density's one mask: the calls cycle through them."""
     dev = torch.device("cuda")
     kw = dict(generator=gen, device=dev)
     pub = torch.randint(-1, 4, (r, cap), dtype=torch.int32, **kw)
     pub[:, ::37] = -1
     t = torch.randint(0, 4, (r, cap), **kw).float() * 0.5
     ac = torch.randint(0, 6, (r, cap), dtype=torch.int32, **kw)
-    mask = torch.rand((rr, r), **kw) < density
+    if masks is None:
+        masks = [torch.rand((rr, r), **kw) < density]
     row_ids = None if offset is None else offset + torch.arange(rr, device=dev)
-    got = gm.gossip_winner(t, pub, ac, mask, row_offset=offset)
-    want = gm.gossip_winner_plain(t, pub, ac, mask, row_ids=row_ids)
-    torch.cuda.synchronize()
-    max_abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    check(all(torch.equal(g, w) for g, w in zip(got, want)),
-          f"{name}: gossip_winner differs from its plain version (max abs err {max_abs_err})")
+    max_abs_err = 0.0
+    for mask in masks:
+        got = gm.gossip_winner(t, pub, ac, mask, row_offset=offset)
+        want = gm.gossip_winner_plain(t, pub, ac, mask, row_ids=row_ids)
+        torch.cuda.synchronize()
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"{name}: gossip_winner differs from its plain version (max abs err {err})")
+        max_abs_err = max(max_abs_err, err)
 
-    kernel = lambda: gm.gossip_winner(t, pub, ac, mask, row_offset=offset)
-    plain = lambda: gm.gossip_winner_plain(t, pub, ac, mask, row_ids=row_ids)
-    ms = device_ms(kernel, [()] * reps)
+    cycle = [(masks[k % len(masks)],) for k in range(reps)]
+    kernel = lambda mask: gm.gossip_winner(t, pub, ac, mask, row_offset=offset)
+    plain = lambda mask: gm.gossip_winner_plain(t, pub, ac, mask, row_ids=row_ids)
+    ms = device_ms(kernel, cycle)
     # the plain version launches about 30 kernels a call: 40 calls queued
     # behind the spin would fill CUDA's launch queue and block the host
-    plain_ms = device_ms(plain, [()] * 8)
-    wrapper_call_ms = call_ms(kernel, [()] * reps)
+    plain_ms = device_ms(plain, cycle[:8])
+    wrapper_call_ms = call_ms(kernel, cycle)
     # least bytes: the three (R, cap) columns and the mask read once, the two
     # outputs written once; least operations: every admitted candidate
-    # (the receiver always admitted) checked once
+    # (the receiver always admitted) checked once, the mean over the masks
     nbytes = 3 * r * cap * 4 + rr * r + 2 * rr * cap * 4
     ids = (0 if offset is None else offset) + torch.arange(rr, device=dev)
     own = ids[:, None] == torch.arange(r, device=dev)[None, :]
-    checks = int((mask | own).sum()) * cap
+    admitted = [int((m.bool() | own).sum()) for m in masks]
+    checks = sum(admitted) * cap / len(masks)
     ops = GOSSIP_OPS_PER_CHECK * checks
     bytes_s, ops_s = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOPS
     return {
-        "case": name, "R": r, "Rr": rr, "cap": cap, "row_offset": offset, "density": density,
+        "case": name, "R": r, "Rr": rr, "cap": cap, "row_offset": offset,
+        "density": density, "masks": len(masks),
+        "live_edges_per_mask": (sum(admitted) - rr * len(masks)) / len(masks),
         "candidate_checks": checks, "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
         "call_ms": wrapper_call_ms, "library_ms": None,
         "bound_ms": 1e3 * max(bytes_s, ops_s),
@@ -399,16 +415,68 @@ def gossip_case(gm, name, r, rr, cap, offset, density, gen, reps=40):
     }
 
 
-def phase_gossip_kernel(gm):
+def events_batch_masks(gen, n, count):
+    """``count`` masks of an events batch on path (d): 1-4 live edges drawn
+    from ``k_regular(n, 8)``'s, with the diagonal the round adds."""
+    from repro_torch.net.topology import k_regular
+
+    edges = torch.nonzero(torch.from_numpy(k_regular(n, 8).adjacency)).cuda()
+    masks = []
+    for _ in range(count):
+        live = int(torch.randint(1, 5, (1,), generator=gen, device="cuda"))
+        pick = torch.randperm(len(edges), generator=gen, device="cuda")[:live]
+        mask = torch.eye(n, dtype=torch.bool, device="cuda")
+        mask[edges[pick, 0], edges[pick, 1]] = True
+        masks.append(mask)
+    return masks
+
+
+def phase_gossip_kernel(gm, cuda_build, path_d=None):
+    """Phase 1b: the winner at the main shape (density 0.5), the full
+    overlay (every edge live: a ticks round), an events batch of path (d)
+    (1-4 live edges; ``path_d``, the live edges a batch that path (d)
+    really had, is recorded beside it), the union fold, a receiver block,
+    ragged rows and 400 replicas; then the kernel's registers and shared
+    memory."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
-    return [
+    cases = [
         gossip_case(gm, "main", MAIN_NODES, MAIN_NODES, MAIN_SLOTS, None, 0.5, gen),
         gossip_case(gm, "union", MAIN_NODES, 1, MAIN_SLOTS, None, 1.0, gen),
         gossip_case(gm, "block", MAIN_NODES, 25, MAIN_SLOTS, 50, 0.5, gen),
         gossip_case(gm, "ragged", MAIN_NODES, MAIN_NODES, 1000, None, 0.5, gen),
         gossip_case(gm, "scale", 400, 400, MAIN_SLOTS, None, 0.5, gen, reps=20),
+        gossip_case(gm, "full", MAIN_NODES, MAIN_NODES, MAIN_SLOTS, None, 1.0, gen),
+        gossip_case(gm, "events_batch", MAIN_NODES, MAIN_NODES, MAIN_SLOTS, None, None, gen,
+                    masks=events_batch_masks(gen, MAIN_NODES, 40)),
     ]
+    cases[-1]["path_d_live_edges_per_batch"] = path_d
+    return {"cases": cases,
+            "resources": kernel_resources(cuda_build, "gossip_merge.cu", ["gossip_winner_kernel"])}
+
+
+@contextlib.contextmanager
+def live_edge_count(gm, n):
+    """Counts the live edges of every round's (n, n) mask that a run hands
+    the merge winner while the wrapper is wrapped: one sum on the device a
+    round, read after the run (no host sync in the loop). The round adds
+    the diagonal, n entries; the union fold's (1, n) masks are not rounds.
+    Yields a dict that holds the counts once the block has ended."""
+    orig, sums, out = gm.gossip_winner, [], {}
+
+    def spy(t, p, ac, mask, row_offset=None):
+        if mask.shape == (n, n):
+            sums.append(mask.sum(dtype=torch.int64))
+        return orig(t, p, ac, mask, row_offset=row_offset)
+
+    gm.gossip_winner = spy
+    try:
+        yield out
+    finally:
+        gm.gossip_winner = orig
+        live = torch.stack(sums) - n if sums else torch.zeros(0, dtype=torch.int64)
+        out.update(rounds=len(sums), mean_live_edges=float(live.double().mean()) if sums else None,
+                   max_live_edges=int(live.max()) if sums else None)
 
 
 def paper_setup(num_nodes, image_size, seed=0, **population):
@@ -1201,7 +1269,12 @@ def dedup_case(ck, name, r, s, c, classes, special, gen, reps=40):
     dev = torch.device("cuda")
     kw = dict(generator=gen, device=dev)
     dig = torch.randint(0, classes, (s, c), **kw).float()
-    if special:
+    if special == "columns":              # all NaN, only +-0.0, one value, half empty
+        dig[:, 0] = float("nan")
+        dig[:, 1] = torch.where(torch.rand(s, **kw) < 0.5, -0.0, 0.0)
+        dig[:, 2] = 3.5
+        dig[: s // 2, 3] = 0.0
+    elif special:
         dig[torch.rand((s, c), **kw) < 0.1] = float("nan")
         zero = torch.rand((s, c), **kw) < 0.1
         dig[zero] = torch.where(torch.rand((s, c), **kw) < 0.5, -0.0, 0.0)[zero]
@@ -1239,17 +1312,26 @@ def dedup_case(ck, name, r, s, c, classes, special, gen, reps=40):
     }
 
 
-def phase_dedup_kernel(ck):
+def phase_dedup_kernel(ck, cuda_build):
+    """Phase 1c: the dedup at a tick's shape, the gate (R = 1), ragged,
+    NaN and signed zeros, one class, 400 replicas, the edge columns (all
+    NaN, only +-0.0, one value, half empty slots) and a store past one hash
+    table; then the kernel's registers and shared memory."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
-    return [
+    cases = [
         dedup_case(ck, "main", MAIN_NODES, MAIN_SLOTS, MAIN_CHUNKS, 64, False, gen),
         dedup_case(ck, "gate", 1, MAIN_SLOTS, MAIN_CHUNKS, 64, False, gen),
         dedup_case(ck, "ragged", 37, 1000, 3, 100, False, gen),
         dedup_case(ck, "nan_and_zeros", MAIN_NODES, MAIN_SLOTS, MAIN_CHUNKS, 8, True, gen),
         dedup_case(ck, "one_class", MAIN_NODES, MAIN_SLOTS, MAIN_CHUNKS, 1, False, gen),
         dedup_case(ck, "scale", 400, MAIN_SLOTS, MAIN_CHUNKS, 64, False, gen, reps=20),
+        dedup_case(ck, "edge_columns", MAIN_NODES, MAIN_SLOTS, MAIN_CHUNKS, 1 << 20, "columns",
+                   gen),
+        dedup_case(ck, "past_table", 33, 2049, 2, 64, True, gen, reps=20),
     ]
+    return {"cases": cases,
+            "resources": kernel_resources(cuda_build, "chunk_dedup.cu", ["chunk_dedup_kernel"])}
 
 
 def pop_queue(gen, q, case):
@@ -1456,9 +1538,13 @@ def phase_events_main_path(cuda_build, bankless, unlimited):
                                 dict(options, engine=engine))[0]
             drains += out[key]["drain_batches"]
     check(drains > 0, "events (c): no drain-only batch ran")
-    out["d_k_regular_jitter"] = phase_gossip_main_path(
-        cuda_build, "events (d)", iterations=JITTER_ITERATIONS, engine="events",
-        topology=k_regular(MAIN_NODES, 8, link_latency=0.5, latency_jitter=1.0, seed=0))[0]
+    from repro_torch.kernels import gossip_merge
+
+    with live_edge_count(gossip_merge, MAIN_NODES) as live:
+        out["d_k_regular_jitter"] = phase_gossip_main_path(
+            cuda_build, "events (d)", iterations=JITTER_ITERATIONS, engine="events",
+            topology=k_regular(MAIN_NODES, 8, link_latency=0.5, latency_jitter=1.0, seed=0))[0]
+    out["d_k_regular_jitter"]["live_edges_per_batch"] = live
     return out, out["a_degenerate"]["launches"]
 
 
@@ -3222,10 +3308,17 @@ def main() -> int:
         t = time.perf_counter()
         print(json.dumps({"small_rwkv_agreement": phase_small_rwkv_agreement()}))
         print(f"[phase 3j] the RWKV model, card against CPU: {time.perf_counter() - t:.1f} s")
-        gossip_cases = phase_gossip_kernel(gossip_merge)
-        print(json.dumps({"gossip_cases": gossip_cases}))
-        dedup_cases = phase_dedup_kernel(chunk_transfer)
-        print(json.dumps({"dedup_cases": dedup_cases}))
+        t = time.perf_counter()
+        gossip_phase = phase_gossip_kernel(
+            gossip_merge, cuda_build, events_paths["d_k_regular_jitter"]["live_edges_per_batch"])
+        gossip_cases = gossip_phase["cases"]
+        print(json.dumps({"gossip_cases": gossip_phase}))
+        print(f"[phase 1b] gossip_winner vs plain: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        dedup_phase = phase_dedup_kernel(chunk_transfer, cuda_build)
+        dedup_cases = dedup_phase["cases"]
+        print(json.dumps({"dedup_cases": dedup_phase}))
+        print(f"[phase 1c] chunk_dedup vs plain: {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
         quant_cases, topk_cases, codec_resources = phase_codec_kernel(delta_codec, cuda_build)
         print(json.dumps({"quant_cases": quant_cases}))

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Time the event-queue head and the codec's top-k kernels of one source tree.
+"""Time the event-queue head, the codec's top-k, the merge-winner and the
+chunk-dedup kernels of one source tree.
 
     python3 scripts/torch_kernel_ab.py [--src DIR]
 
 On a machine with a CUDA card and nvcc. Loads ``repro_torch`` from ``DIR``
-(default: this checkout's ``src``), builds its ``event_pop.cu`` and
-``delta_codec.cu`` (into ``build/kernels`` beside that tree), holds each
-kernel bitwise against its plain version on a few draws, and prints one
-JSON line:
+(default: this checkout's ``src``), builds its ``event_pop.cu``,
+``delta_codec.cu``, ``gossip_merge.cu`` and ``chunk_dedup.cu`` (into
+``build/kernels`` beside that tree), holds each kernel bitwise against its
+plain version, and prints one JSON line:
 
 - the head kernel (``event_head``) at Q = 9,900 (the full overlay's
   delivery slots) and 19,800 (with the bank's drain slots): device ms hot
@@ -16,11 +17,18 @@ JSON line:
   where the tree has it, through ``pop_head`` (the pinned mirror);
 - the top-k kernel (``topk_leaves``) at the paper's CNN blocked leaf by
   leaf, k = 1, 8, 33 and 128, with a base: device ms;
+- the merge winner (``gossip_winner``) at every case of ``chip_smoke.py``'s
+  phase 1b (density 0.5, the union fold, a receiver block, ragged rows, 400
+  replicas, the full overlay, an events batch of path (d)) and the chunk
+  dedup (``chunk_dedup``) at every case of its phase 1c (a tick, the gate,
+  ragged, NaN and signed zeros, one class, 400 replicas, the edge columns,
+  a store past one hash table): device ms, plain ms, the bound, and the
+  kernel's registers and shared memory;
 - a launch's floor: the device ms of a one-element in-place add;
 - with ``--profile-events``, ``chip_smoke.py``'s profiled window of the
-  events engine's path (c) with int4 (40 iterations): the head kernel's
-  device ms a launch in the loop, the host syncs a batch, the device's idle
-  share.
+  events engine's path (c) with int4 (40 iterations): the head, winner and
+  dedup kernels' device ms a launch in the loop, the host syncs a batch,
+  the device's idle share.
 
 The timings are ``chip_smoke.py``'s (``device_ms``, ``call_ms``) on its
 queues and payloads. To compare two trees on one card, unpack the other
@@ -84,8 +92,11 @@ def main() -> int:
     sys.path.insert(0, src)
     from repro_torch.core.aggregation import leaf_shapes
     from repro_torch.fl.tasks import CNNTask
+    from repro_torch.kernels import chunk_transfer as ck
+    from repro_torch.kernels import cuda_build
     from repro_torch.kernels import delta_codec as dc
     from repro_torch.kernels import event_pop as ep
+    from repro_torch.kernels import gossip_merge as gm
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
@@ -94,20 +105,24 @@ def main() -> int:
         heads = [time_head(ep, "deliver", smoke.MAIN_EDGES, "deliver", gen),
                  time_head(ep, "bank", 2 * smoke.MAIN_EDGES, "bank", gen)]
         topk = [time_topk(dc, main_layout, k, gen) for k in (1, 8, 33, 128)]
+        winner = smoke.phase_gossip_kernel(gm, cuda_build)
+        dedup = smoke.phase_dedup_kernel(ck, cuda_build)
     except smoke.SmokeFailure as e:
         print(f"torch_kernel_ab: FAILED: {e}", file=sys.stderr)
         return 1
     one = torch.zeros(1, device="cuda")
     floor_ms = smoke.device_ms(lambda t: t.add_(1.0), [(one,)] * HOT_REPS)
     out = {"src": src, "card": smoke.nvidia_smi_line(), "event_head": heads,
-           "topk_leaves": topk, "launch_floor_ms": floor_ms}
+           "topk_leaves": topk, "gossip_winner": winner, "chunk_dedup": dedup,
+           "launch_floor_ms": floor_ms}
     if opts.profile_events:
         prof = smoke.phase_profile(
             "run_dagfl_gossip", label="events (c) int4", engine="events",
             **smoke.events_constrained_runs()["int4"])
         out["profile_events"] = {k: prof.get(k) for k in (
             "wall_ms", "device_idle_share", "event_batches", "host_syncs",
-            "host_syncs_per_batch", "event_pop_in_loop")}
+            "host_syncs_per_batch", "event_pop_in_loop", "gossip_winner_in_loop",
+            "chunk_dedup_in_loop")}
     print(json.dumps(out))
     return 0
 

@@ -38,8 +38,8 @@ import torch
 from repro_torch.kernels import cuda_build
 
 NAME = "chunk_dedup"
-MAX_COLUMNS = 65535            # gridDim.y
-MAX_RECEIVERS = 65535 * 8      # gridDim.z blocks of 8 receivers
+MAX_COLUMNS = 2**31 - 1        # gridDim.x
+MAX_RECEIVERS = 65535 * 32     # gridDim.y blocks of at most 32 receivers
 
 
 def chunk_dedup_plain(

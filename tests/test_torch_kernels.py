@@ -17,12 +17,18 @@ and two sums a hair apart may round to neighbouring values).
 
 The gossip-merge winner, ``kernels/gossip_merge.py``: its outputs are
 indices and counters, so the kernel must equal the plain version bitwise
-(``test_gossip_winner_kernel_on_card``); the plain version is held against
-the reference in ``tests/test_torch_gossip.py``.
+(``test_gossip_winner_kernel_on_card``, ``test_gossip_winner_kernel_masks_on_card``:
+the full overlay, an events batch's few live edges, receivers that hear only
+themselves, every sender winning with negative counters); the plain version
+is held against the reference in ``tests/test_torch_gossip.py``, the
+kernel's walk in ``tests/test_torch_gossip_tiles.py``.
 
 The chunk dedup, ``kernels/chunk_transfer.py``: a bitmap, so the kernel must
-equal the plain version bitwise (``test_chunk_dedup_kernel_on_card``); the
-plain version is held against the reference in ``tests/test_torch_bank.py``.
+equal the plain version bitwise (``test_chunk_dedup_kernel_on_card``,
+``test_chunk_dedup_kernel_edge_columns_on_card``: all-NaN, only +-0.0 and
+one-class columns, S past one and two hash tables); the plain version is
+held against the reference in ``tests/test_torch_bank.py``, the kernel's
+hash classes in ``tests/test_torch_dedup_classes.py``.
 
 The event-queue head, ``kernels/event_pop.py``: an index, a flag, the head's
 time bits and kind, so the kernel must equal the plain version bitwise
@@ -310,10 +316,13 @@ def test_gossip_wrapper_launches_nothing_off_the_card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("r,rr,cap,offset,density", [
     (100, 100, 512, None, 0.5),     # a round at the main path's shape
+    (100, 100, 512, None, 1.0),     # a round on the full overlay: every edge live
     (100, 1, 512, None, 1.0),       # the union fold (merge_all)
     (100, 25, 512, 50, 0.5),        # a receiver block
     (100, 100, 1000, None, 0.5),    # cap not a multiple of the block
-    (5000, 3, 129, 4990, 0.3),      # more senders than one shared-memory chunk
+    (5000, 3, 129, 4990, 0.3),      # more senders than one staged window
+    (300, 40, 70, 100, 0.02),       # sparse rows over three windows
+    (300, 4, 40, 50, 0.005),        # a few senders past one window
     (7, 7, 5, None, 0.0),           # nobody hears anybody: every receiver keeps its rows
 ])
 def test_gossip_winner_kernel_on_card(cuda, r, rr, cap, offset, density):
@@ -339,6 +348,60 @@ def test_gossip_winner_kernel_on_card(cuda, r, rr, cap, offset, density):
         t_gm.gossip_winner(t, pub.long(), ac, mask)
     with pytest.raises(ValueError, match="row_offset"):
         t_gm.gossip_winner(t, pub, ac, mask, row_offset=r - rr + 1)
+
+
+def events_batch_mask(gen, n, device, live):
+    """An events batch's mask on the full-width path: ``live`` edges of
+    ``k_regular(n, 8)`` fire at one instant, and the round adds the diagonal."""
+    from repro_torch.net.topology import k_regular
+
+    edges = torch.nonzero(torch.from_numpy(k_regular(n, 8).adjacency))
+    pick = torch.randperm(len(edges), generator=gen, device=device)[:live].cpu()
+    mask = torch.eye(n, dtype=torch.bool, device=device)
+    mask[edges[pick, 0].to(device), edges[pick, 1].to(device)] = True
+    return mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["events_batch", "events_batch_4", "self_only",
+                                  "every_sender_wins", "every_sender_wins_r1",
+                                  "every_sender_wins_block"])
+def test_gossip_winner_kernel_masks_on_card(cuda, case):
+    """The masks and states the new walk branches on: a (d) batch's few
+    live edges (nearly every receiver self-only), nobody hearing anybody,
+    and every sender holding one key with negative counters."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(len(case))
+    r, rr, cap, offset = 100, 100, 512, None
+    t, pub, ac = gossip_state(gen, r, cap, cuda)
+    if case.startswith("events_batch"):
+        mask = events_batch_mask(gen, r, cuda, 4 if case.endswith("4") else 1)
+    elif case == "self_only":
+        mask = torch.zeros((rr, r), dtype=torch.uint8, device=cuda)
+    else:
+        if case.endswith("r1"):
+            r = rr = 1
+        elif case.endswith("block"):
+            rr, offset = 25, 50
+        t, pub = t[:1].expand(r, cap).contiguous(), pub[:1].expand(r, cap).contiguous()
+        t[:, 3] = -0.0
+        t[::2, 3] = 0.0                       # -0.0 and +0.0 one key
+        ac = -torch.randint(1, 6, (r, cap), generator=gen, device=cuda, dtype=torch.int32)
+        mask = torch.ones((rr, r), dtype=torch.bool, device=cuda)
+    row_ids = None if offset is None else offset + torch.arange(rr, device=cuda)
+    before = cuda_build.LAUNCHES["gossip_winner"]
+    got = t_gm.gossip_winner(t, pub, ac, mask, row_offset=offset)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["gossip_winner"] == before + 1
+    want = t_gm.gossip_winner_plain(t, pub, ac, mask.bool(), row_ids=row_ids)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if case.startswith("every_sender_wins") and rr == r:
+        assert bool((got[1][:, pub[0] >= 0] < 0).all())   # a negative counter survives
+    if case == "self_only":
+        own = torch.arange(r, device=cuda, dtype=torch.int32)[:, None].expand(r, cap)
+        assert torch.equal(got[0], own)
+        assert torch.equal(got[1], torch.where(pub >= 0, ac.clamp(min=0), 0))
 
 
 def dedup_state(gen, r, s, c, classes, device):
@@ -394,6 +457,30 @@ def test_chunk_dedup_kernel_on_card(cuda, r, s, c, classes):
         t_ck.chunk_dedup(have, dig.double())
     with pytest.raises(ValueError):
         t_ck.chunk_dedup(have, dig[:-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,s", [(100, 512), (1, 512), (33, 2049), (5, 4097)])
+def test_chunk_dedup_kernel_edge_columns_on_card(cuda, r, s):
+    """Columns that stress the classes: every digest NaN (presence only),
+    only -0.0 and +0.0 (one class), one value, and the main path's empty
+    slots (one class of zeros beside distinct digests); S up to two tables
+    past one."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(r + s)
+    kw = dict(generator=gen, device=cuda)
+    dig = torch.randint(0, 1 << 20, (s, 5), **kw).float()
+    dig[:, 0] = float("nan")
+    dig[:, 1] = torch.where(torch.rand(s, **kw) < 0.5, -0.0, 0.0)
+    dig[:, 2] = 3.5
+    dig[: s // 2, 3] = 0.0
+    have = torch.rand((r, s, 5), **kw) < 0.02
+    got = t_ck.chunk_dedup(have, dig)
+    torch.cuda.synchronize()
+    assert torch.equal(got, t_ck.chunk_dedup_plain(have, dig))
+    assert torch.equal(got[:, :, 0], have[:, :, 0])
+    for col in (1, 2):
+        assert torch.equal(got[:, :, col], have[:, :, col].any(1, keepdim=True).expand(r, s))
 
 
 # ---------------------------------------------------------------------------
