@@ -101,16 +101,24 @@ and its sequential route at rwkv6-7b's decode step (B 128) and an odd f32
 shape at hd 128, T 9, against ``wkv_scan_plain``, out of place and in
 place, with each WKV kernel's registers and shared memory; 1d times the
 top-k kernel's two selections at the main shape (k = 32: rounds; 33: the
-bitwise search) and blocks of 1,024 beside the earlier cases and prints
-the codec kernels' registers and spills; 1e checks ``pop_head``'s pinned
+bitwise search) and blocks of 1,024 beside the earlier cases, the
+quantisation with the decoded payload in the same launch (the commit's
+``encode_decode``: the CNN's own leaves, a ragged model's unaligned views,
+zero blocks, exact halves, 4x scale) bitwise against the plain
+quantisation and dequantisation, checks ``encode_decode`` against
+``decode(encode())`` and prints the codec kernels' registers and spills;
+1e checks ``pop_head``'s pinned
 host mirror against the device words on every draw, times the pop and
 read back through it and through ``read_head``, adds Q either side of a
 pass of the cluster and a million slots, and prints the head kernel's
-registers, shared memory and cluster size; 1f
-also holds
-``bin_index`` on the card against the CPU at every f32 edge and the
-sync-period multiples); the digest check (bank table against one payload,
-bitwise) runs before phase 2c.
+registers, shared memory and cluster size; 1f holds ``bin_index`` on the
+card against the CPU and the fused ``record`` (binning, bincount and add in
+one launch) against ``record_plain``, bitwise, at every f32 edge of two
+``HistConfig``s with their neighbours and special values, times ``record``
+at the loop's four shapes beside the plain and the unfused path, keeps the
+idx route's four cases and prints the kernel's registers and spills); the
+digest check (bank table against one payload, bitwise) runs before phase
+2c.
 
 Prints one JSON line of kernel numbers, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, on
@@ -138,6 +146,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12     # dense bf16 on the tensor cores
 PEAK_TF32_FLOPS = 495e12     # dense TF32 on the tensor cores
+PEAK_F64_FLOPS = 34e12       # f64 outside the tensor cores
 
 MAIN_P = 1_663_370          # CNNTask() parameters: the paper's full-width CNN
 MAIN_SLOTS = 512            # DagFLConfig.capacity
@@ -172,6 +181,10 @@ TIP_SIM_PENDING = 64            # simulate_insystem_tips' max_pending
 TIP_SIM_SEEDS = (0, 1, 2, 3, 4, 5)
 SPIN_CYCLES = 40_000_000    # about 20 ms at the H100's 1.98 GHz boost clock
 HIST_BINS = 65              # HistConfig(): 64 log-spaced bins and the overflow bin
+# the fused histogram update's least work per weighted sample: the binning
+# (obs/hist.py::bin_index with xla_log_f32: 12 f64 products and 12 f64 sums,
+# two divisions and about 13 other f32 operations) and the add
+HIST_F64_OPS_PER_SAMPLE, HIST_F32_OPS_PER_SAMPLE = 24, 16
 OBS_ITERATIONS = 100        # phase 2g's depth: each path runs twice (telemetry off, on)
 FAULT_ITERATIONS = 100      # phase 2h's depth: each faulted path beside its unfaulted run
 # the served model (2i): qwen3-0.6b's prefill length, the decode batch (the
@@ -837,6 +850,15 @@ def phase_codec_main_path(cuda_build, table1):
     return out
 
 
+# each count of cuda_build.LAUNCHES and the kernels its wrapper launches
+PROFILED_KERNELS = {
+    "fedavg_gather": ("fedavg_gather_kernel",), "gossip_winner": ("gossip_winner_kernel",),
+    "chunk_dedup": ("chunk_dedup_kernel",), "quant_blocks": ("quant_leaves_kernel",),
+    "topk_blocks": ("topk_blocks_kernel",), "event_pop": ("event_pop_kernel",),
+    "hist_bincount": ("hist_cluster_kernel", "hist_atomic_kernel"),
+}
+
+
 def phase_profile(system="run_dagfl", label=None, **options):
     """A path again, shorter, under ``torch.profiler``: the device's busy
     share and where its time goes. The profiler slows the host, so these
@@ -862,9 +884,8 @@ def phase_profile(system="run_dagfl", label=None, **options):
     if "device_ops" not in out:
         return out
     spans = device_spans(prof)
-    for kernel in ("fedavg_gather", "gossip_winner", "chunk_dedup", "quant_blocks",
-                   "topk_blocks", "event_pop", "hist_bincount"):
-        us = [end - start for start, end, name in spans if f"{kernel}_kernel" in name]
+    for kernel, names in PROFILED_KERNELS.items():
+        us = [end - start for start, end, name in spans if any(n in name for n in names)]
         out[f"{kernel}_in_loop"] = {"launches": len(us), "ms_total": sum(us) / 1e3,
                                     "ms_mean": sum(us) / 1e3 / max(len(us), 1)}
     batches = res.extras.get("events_processed", 0)
@@ -1167,6 +1188,77 @@ def quant_case(dc, name, layout, case, qmax, gen, reps=40):
             "call_ms": wrapper_call_ms, **codec_bound(nbytes, QUANT_OPS_PER_VALUE * p)}
 
 
+def leaves_of(dc, row, layout, own):
+    """A flat payload's leaves, as the layout slices it: views of the row
+    (offsets not 16-byte aligned), or with ``own`` tensors of their own, as
+    a trained model's leaves are."""
+    fv = layout.first_value
+    views = {name: row[v0:v1] for name, v0, v1 in zip(layout.names, fv, fv[1:])}
+    return {name: v.clone() for name, v in views.items()} if own else views
+
+
+def fused_case(dc, name, layout, case, qmax, gen, reps=40, own=True):
+    """Quantisation with the decoded payload in the same launch
+    (``quant_params(..., decode=True)``, what the codec's commit runs): the
+    codes, scales and decoded payload bitwise against ``quant_blocks_plain``
+    and ``dequant_blocks_plain``, then times: the launch, the same launch
+    without the decoded payload, the plain version, and the bound (bytes:
+    the payload read once, codes, scales and the decoded payload written
+    once), and, as a yardstick of what the card moves at this size, one
+    PyTorch copy of the payload."""
+    rows = codec_rows(gen, layout, case, qmax)
+    params = [leaves_of(dc, row, layout, own) for row in rows]
+    args = [(params[i % len(params)], layout, qmax) for i in range(reps)]
+    codes, scales, decoded = dc.quant_params(*args[0], decode=True)
+
+    def plain(p, layout, qmax):
+        c, sc = dc.quant_blocks_plain(dc.blocked(dc.flatten_params(p), layout), qmax)
+        return c, sc, dc._unblocked(dc.dequant_blocks_plain(c, sc), layout)
+
+    want_c, want_s, want_d = plain(*args[0])
+    torch.cuda.synchronize()
+    max_abs_err = max(bits_err(codes, want_c), bits_err(scales, want_s),
+                      bits_err(decoded, want_d))
+    check(same_bits(codes, want_c) and same_bits(scales, want_s) and same_bits(decoded, want_d),
+          f"fused quant {name}: differs from its plain version (max abs err {max_abs_err})")
+    ms = device_ms(lambda p, layout, qmax: dc.quant_params(p, layout, qmax, decode=True), args)
+    quant_ms = device_ms(dc.quant_params, args)
+    plain_ms = device_ms(plain, args[:8])
+    # yardstick: PyTorch's copy of the same payload (its reads, P values written)
+    copies = [(torch.empty_like(row), row) for row in rows]
+    copy_ms = device_ms(lambda dst, src: dst.copy_(src), copies * (reps // len(copies)))
+    wrapper_call_ms = call_ms(lambda p, layout, qmax: dc.quant_params(p, layout, qmax, decode=True),
+                              args)
+    nb, p = layout.num_blocks, layout.num_values
+    nbytes = 8 * p + nb * layout.block + 4 * nb
+    return {"case": name, "qmax": qmax, "values": p, "blocks": nb, "leaves": len(layout.names),
+            "own_leaves": own, "max_abs_err": max_abs_err, "ms": ms, "quant_only_ms": quant_ms,
+            "plain_ms": plain_ms, "library_ms": None, "call_ms": wrapper_call_ms,
+            "payload_copy_ms": copy_ms,
+            **codec_bound(nbytes, (QUANT_OPS_PER_VALUE + 1) * p)}
+
+
+def encode_decode_check(dc, params, kind):
+    """``DeltaCodec.encode_decode`` on the card: ``encode``'s keys and
+    tensors and ``decode(encode(...))``'s payload, bitwise, in one launch."""
+    base = {k: v * 0.9 for k, v in params.items()}
+    codec = dc.DeltaCodec(kind)
+    enc, dec = codec.encode_decode(params, base)
+    want = codec.encode(params, base)
+    want_dec = codec.decode(want, base)
+    torch.cuda.synchronize()
+    check(enc.keys() == want.keys()
+          and all(enc[k].keys() == want[k].keys() for k in enc), f"encode_decode {kind}: keys")
+    for part in enc:
+        for leaf in enc[part]:
+            check(same_bits(enc[part][leaf], want[part][leaf]),
+                  f"encode_decode {kind}: {part} {leaf} differs from encode")
+    for leaf in dec:
+        check(dec[leaf].shape == base[leaf].shape and same_bits(dec[leaf], want_dec[leaf]),
+              f"encode_decode {kind}: {leaf} differs from decode(encode)")
+    return {"kind": kind, "leaves": len(dec), "bitwise": True}
+
+
 def topk_case(dc, name, layout, case, k, gen, reps=40, with_base=True):
     """One shape of the top-k kernel: the masked delta bitwise against the
     plain version, then times. With a base the kernel subtracts it in place;
@@ -1218,10 +1310,13 @@ def topk_case(dc, name, layout, case, k, gen, reps=40, with_base=True):
 def phase_codec_kernel(dc, cuda_build):
     """Phase 1d: both codec kernels at the main path's shape (the paper's
     CNN blocked leaf by leaf), a ragged model, all-zero blocks, exact halves,
-    ties with NaN and -0.0, k >= nnz and a 4x scale; top-k also at k = 32
-    and 33 on the main shape (the last k of the warp's rounds, the first of
-    its bitwise search) and in blocks of 1,024; then the kernels' registers
-    and spills."""
+    ties with NaN and -0.0, k >= nnz and a 4x scale; quantisation also with
+    the decoded payload in the same launch (the commit's encode + decode:
+    the CNN's own leaf tensors, the ragged model's unaligned views, zero
+    blocks, halves, 4x scale) and ``encode_decode`` against ``decode(
+    encode())`` on the CNN; top-k also at k = 32 and 33 on the main shape
+    (the last k of the warp's rounds, the first of its bitwise search) and
+    in blocks of 1,024; then the kernels' registers and spills."""
     from repro_torch.core.aggregation import leaf_shapes
     from repro_torch.fl.tasks import CNNTask
 
@@ -1234,7 +1329,7 @@ def phase_codec_kernel(dc, cuda_build):
                                   enumerate((1, 127, 0, 129, 1_000_003, 77))))
     dense = dc.dense_layout(MAIN_CODEC_BLOCKS, dc.BLOCK)
     scale = dc.dense_layout(4 * MAIN_CODEC_BLOCKS, dc.BLOCK)
-    quant, topk = [], []
+    quant, fused, topk = [], [], []
     for kind, qmax in (("int8", 127), ("int4", 7)):
         quant += [
             quant_case(dc, f"main_{kind}", main, "random", qmax, gen),
@@ -1243,6 +1338,15 @@ def phase_codec_kernel(dc, cuda_build):
             quant_case(dc, f"halves_{kind}", dense, "halves", qmax, gen),
             quant_case(dc, f"scale_4x_{kind}", scale, "random", qmax, gen, reps=20),
         ]
+        fused += [
+            fused_case(dc, f"main_{kind}", main, "random", qmax, gen),
+            fused_case(dc, f"ragged_{kind}", ragged, "random", qmax, gen, own=False),
+            fused_case(dc, f"zero_blocks_{kind}", dense, "zero", qmax, gen),
+            fused_case(dc, f"halves_{kind}", dense, "halves", qmax, gen),
+            fused_case(dc, f"scale_4x_{kind}", scale, "random", qmax, gen, reps=20),
+        ]
+    cnn = {k: v.cuda() + 0.01 for k, v in CNNTask().init(0, "cpu").items()}
+    checks = [encode_decode_check(dc, cnn, kind) for kind in ("int8", "int4", "topk")]
     topk += [
         topk_case(dc, "main", main, "random", 8, gen),
         topk_case(dc, "ragged", ragged, "random", 8, gen),
@@ -1257,9 +1361,10 @@ def phase_codec_kernel(dc, cuda_build):
     ]
     torch.cuda.empty_cache()
     resources = kernel_resources(cuda_build, "delta_codec.cu",
-                                 ["quant_blocks_kernel"] + [f"topk_blocks_kernel<{v}>"
-                                                            for v in (1, 2, 4, 8, 16, 32)])
-    return quant, topk, resources
+                                 [f"quant_leaves_kernel<{j}>" for j in (1, 2, 4, 8)]
+                                 + [f"topk_blocks_kernel<{v}>" for v in (1, 2, 4, 8, 16, 32)])
+    return {"quant": quant, "fused": fused, "topk": topk, "encode_decode": checks,
+            "resources": resources}
 
 
 def dedup_case(ck, name, r, s, c, classes, special, gen, reps=40):
@@ -1421,16 +1526,19 @@ def pop_case(ep, name, q, case, gen, draws=5, reps=200, cold=False):
 
 def kernel_resources(cuda_build, source, kernels):
     """Registers, spills, stack and static shared memory of each of
-    ``kernels`` (``name`` or ``name<V>`` for a template on an int) in the
-    -Xptxas=-v report of ``source``'s build log."""
+    ``kernels`` (``name``, or ``name<V>`` for a template on an int, on
+    ``uint8_t`` or on ``int32_t``) in the -Xptxas=-v report of ``source``'s
+    build log."""
     import re
 
     log = cuda_build.library_path(cuda_build.CSRC / source).with_suffix(".log")
     out, name = {}, None
     for line in log.read_text().splitlines():
-        entry = re.search(r"Compiling entry function '\S*?\d([a-z_]+_kernel)(?:ILi(\d+)E)?", line)
+        entry = re.search(r"Compiling entry function '\S*?\d([a-z_]+_kernel)(?:I(Li(\d+)|h|i)E)?",
+                          line)
         if entry:
-            name = entry.group(1) + (f"<{entry.group(2)}>" if entry.group(2) else "")
+            arg = entry.group(3) or {"h": "uint8_t", "i": "int32_t", None: None}[entry.group(2)]
+            name = entry.group(1) + (f"<{arg}>" if arg else "")
             out[name] = {}
         elif name and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                                       r"(\d+) bytes spill loads", line)):
@@ -1705,30 +1813,129 @@ def hist_case(hb, name, case, gen, reps=200):
             "bound_bytes": nbytes}
 
 
-def phase_hist_kernel(hb):
-    """Phase 1f: the histogram bincount against its plain version at the
-    loop's shapes, and ``bin_index`` on the card against the CPU, bitwise,
-    at every f32 edge, its neighbours and the sync-period multiples."""
+def record_batch(gen, case, cfg):
+    """(counts, values, weights) on the card shaped like one of the loop's
+    histogram updates: ``merge`` R * cap latencies of sync-period
+    multiples, 2 % weighted (bool, as ``changed``); ``commit`` the cap rows
+    of replica 0, 1 % weighted (bool); ``chunk`` R * cap latencies, 5 %
+    weighted by 1-4 completed chunks (i32); ``uniform`` R * cap values
+    log-uniform over the whole range and past it, every one weighted (i32)."""
+    m = MAIN_SLOTS if case == "commit" else MAIN_NODES * MAIN_SLOTS
+    kw = dict(generator=gen, device="cuda")
+    counts = torch.randint(0, 1_000, (cfg.bins + 1,), dtype=torch.int32, **kw)
+    if case == "uniform":
+        span = np.log(cfg.hi / cfg.lo) + 6.0
+        values = (cfg.lo * np.exp(-3.0)) * torch.exp(torch.rand((m,), **kw) * span)
+        return counts, values.float(), torch.randint(1, 4, (m,), dtype=torch.int32, **kw)
+    values = 0.25 * torch.randint(1, 33, (m,), **kw).float()
+    p = {"merge": 0.02, "commit": 0.01, "chunk": 0.05}[case]
+    w = torch.rand((m,), **kw) < p
+    if case == "chunk":
+        w = w.to(torch.int32) * torch.randint(1, MAIN_CHUNKS + 1, (m,), dtype=torch.int32, **kw)
+    return counts, values, w
+
+
+def record_case(hb, hist_lib, name, case, gen, reps=200):
+    """One histogram update at a loop's shape: ``record`` (one launch)
+    bitwise against ``record_plain`` (``bin_index``, the plain bincount and
+    the add) on the same card tensors, ``counts`` unchanged; then times:
+    the launch, the plain version, the parent's unfused path (``bin_index``,
+    a cast, the idx route's kernel and the add), the call with the host in
+    the loop, and the bound (bytes: values, weights and counts read once,
+    the bins written once; operations: the binning of the weighted samples
+    at the f64 and f32 peaks). No one PyTorch call bins on a log scale."""
+    cfg = hist_lib.HistConfig()
+    batches = [record_batch(gen, case, cfg) for _ in range(8)]
+    for counts, values, w in batches:
+        before = counts.clone()
+        got = hist_lib.record(counts, values, w, cfg)
+        want = hist_lib.record_plain(counts, values, w, cfg)
+        torch.cuda.synchronize()
+        max_abs_err = int((got.long() - want.long()).abs().max())
+        check(torch.equal(got, want) and torch.equal(counts, before),
+              f"record {name}: kernel != plain ({max_abs_err} off) or counts written")
+    lo, ratio, bins = hist_lib.bin_params(cfg)
+
+    def unfused(counts, values, w):
+        return counts + hb.hist_bincount(hist_lib.bin_index(values, cfg), w.to(torch.int32),
+                                         bins + 1)
+
+    def fused(counts, values, w):
+        return hist_lib.record(counts, values, w, cfg)
+
+    ms = device_ms(fused, batches * (reps // 8))
+    # about 95 launches a call: four calls, or the queue behind the spin
+    # fills and blocks the host
+    plain_ms = device_ms(lambda c, v, w: hist_lib.record_plain(c, v, w, cfg), batches[:4])
+    unfused_ms = device_ms(unfused, batches[:4])
+    call = call_ms(fused, batches * 8)
+    m = int(batches[0][1].shape[0])
+    weighted = int((batches[0][2] != 0).sum())
+    nbytes = 4 * m + batches[0][2].element_size() * m + 2 * 4 * (bins + 1)
+    bytes_s = nbytes / PEAK_BYTES_PER_S
+    ops_s = weighted * (HIST_F64_OPS_PER_SAMPLE / PEAK_F64_FLOPS
+                        + HIST_F32_OPS_PER_SAMPLE / PEAK_F32_FLOPS)
+    return {"case": name, "batch": case, "m": m, "weighted": weighted,
+            "weights": str(batches[0][2].dtype), "num_bins": bins + 1,
+            "cluster_blocks": hb.cluster_blocks(m), "max_abs_err": max_abs_err, "ms": ms,
+            "plain_ms": plain_ms, "unfused_ms": unfused_ms, "call_ms": call,
+            "library_ms": None, "bound_ms": 1e3 * max(bytes_s, ops_s),
+            "bound_by": "bytes" if bytes_s >= ops_s else "operations", "bound_bytes": nbytes}
+
+
+def edge_values(hist_lib, cfg, rng):
+    """Every f32 edge of ``cfg`` with its two neighbours, the sync-period
+    multiples, 0, -0.0, negatives, subnormals, NaN, +-inf and 3e38, then
+    100,000 log-uniform values over the bins and past them."""
+    e = hist_lib.edges(cfg).astype(np.float32)
+    return np.concatenate([
+        e, np.nextafter(e, np.float32(np.inf)), np.nextafter(e, np.float32(-np.inf)),
+        np.arange(1, 33, dtype=np.float32) * np.float32(0.25),
+        np.float32([0.0, -0.0, -1.0, -3e38, 1e-45, 1e-40, np.nan, np.inf, -np.inf, 3e38]),
+        np.exp(rng.uniform(np.log(cfg.lo) - 3, np.log(cfg.hi) + 3, 100_000)).astype(np.float32)])
+
+
+def phase_hist_kernel(hb, cuda_build):
+    """Phase 1f: the histogram update. ``bin_index`` on the card against the
+    CPU, and ``record`` (one launch) against ``record_plain`` on the card,
+    bitwise, at every f32 edge of the default and a non-default
+    ``HistConfig`` with their neighbours and special values, each value
+    with its own large i32 weight (a value in another bin moves two sums)
+    and with bool weights; ``record`` at the loop's four shapes; the idx
+    route (the TPU kernel's contract) against ``hist_bincount_plain`` at
+    its four cases; the kernel's registers and spills."""
     from repro_torch.obs import hist as hist_lib
 
-    cfg = hist_lib.HistConfig()
-    e = hist_lib.edges(cfg).astype(np.float32)
-    values = np.concatenate([e, np.nextafter(e, np.float32(np.inf)),
-                             np.nextafter(e, np.float32(-np.inf)),
-                             np.arange(1, 33, dtype=np.float32) * np.float32(0.25),
-                             np.float32([0.0, -1.0, np.inf, np.nan, 3e38])])
     rng = np.random.default_rng(7)
-    values = np.concatenate([values, np.exp(rng.uniform(-12, 12, 100_000)).astype(np.float32)])
-    cpu = hist_lib.bin_index(torch.from_numpy(values), cfg)
-    card = hist_lib.bin_index(torch.from_numpy(values).cuda(), cfg).cpu()
-    bad = (card != cpu).nonzero().flatten()
-    check(bad.numel() == 0, f"bin_index: card differs from the CPU at "
-                            f"{values[bad[:5].numpy()].tolist()}: {card[bad[:5]].tolist()} vs "
-                            f"{cpu[bad[:5]].tolist()}")
+    checked = 0
+    for cfg in (hist_lib.HistConfig(), hist_lib.HistConfig(bins=16, lo=1e-3, hi=1e3)):
+        values = edge_values(hist_lib, cfg, rng)
+        cpu = hist_lib.bin_index(torch.from_numpy(values), cfg)
+        card = hist_lib.bin_index(torch.from_numpy(values).cuda(), cfg).cpu()
+        bad = (card != cpu).nonzero().flatten()
+        check(bad.numel() == 0, f"bin_index: card differs from the CPU at "
+                                f"{values[bad[:5].numpy()].tolist()}: {card[bad[:5]].tolist()} vs "
+                                f"{cpu[bad[:5]].tolist()}")
+        v = torch.from_numpy(values).cuda()
+        counts = torch.from_numpy(rng.integers(0, 1_000, cfg.bins + 1).astype(np.int32)).cuda()
+        for w in (torch.from_numpy(rng.integers(1, 1 << 20, values.size).astype(np.int32)),
+                  torch.from_numpy(rng.random(values.size) < 0.5)):
+            w = w.cuda()
+            got, want = hist_lib.record(counts, v, w, cfg), hist_lib.record_plain(counts, v, w, cfg)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"record at the edges of {cfg}, {w.dtype} weights: "
+                                          f"{(got - want).abs().max().item()} off")
+        checked += values.size
     gen = torch.Generator(device="cuda")
     gen.manual_seed(17)
+    records = [record_case(hb, hist_lib, f"record_{name}", name, gen)
+               for name in ("merge", "commit", "chunk", "uniform")]
     cases = [hist_case(hb, name, name, gen) for name in ("merge", "commit", "chunk", "uniform")]
-    return {"bin_index_values_checked": int(values.shape[0]), "cases": cases}
+    resources = kernel_resources(cuda_build, "hist_bincount.cu", [
+        f"{k}<{t}>" for k in ("hist_cluster_kernel", "hist_atomic_kernel")
+        for t in ("uint8_t", "int32_t")])
+    return {"bin_index_values_checked": checked, "record_cases": records, "cases": cases,
+            "resources": resources}
 
 
 def obs_runs():
@@ -3320,10 +3527,13 @@ def main() -> int:
         print(json.dumps({"dedup_cases": dedup_phase}))
         print(f"[phase 1c] chunk_dedup vs plain: {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
-        quant_cases, topk_cases, codec_resources = phase_codec_kernel(delta_codec, cuda_build)
-        print(json.dumps({"quant_cases": quant_cases}))
+        codec_phase = phase_codec_kernel(delta_codec, cuda_build)
+        fused_cases, topk_cases = codec_phase["fused"], codec_phase["topk"]
+        print(json.dumps({"quant_cases": codec_phase["quant"]}))
+        print(json.dumps({"fused_quant_cases": fused_cases}))
+        print(json.dumps({"encode_decode": codec_phase["encode_decode"]}))
         print(json.dumps({"topk_cases": topk_cases}))
-        print(json.dumps({"codec_resources": codec_resources}))
+        print(json.dumps({"codec_resources": codec_phase["resources"]}))
         print(f"[phase 1d] codec kernels vs plain: {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
         pop_phase = phase_event_pop_kernel(event_pop, cuda_build)
@@ -3331,7 +3541,7 @@ def main() -> int:
         print(json.dumps({"event_pop_cases": pop_phase}))
         print(f"[phase 1e] event_pop vs plain: {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
-        hist_cases = phase_hist_kernel(hist_bincount)
+        hist_cases = phase_hist_kernel(hist_bincount, cuda_build)
         print(json.dumps({"hist_bincount_cases": hist_cases}))
         print(f"[phase 1f] hist_bincount vs plain: {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
@@ -3400,7 +3610,7 @@ def main() -> int:
         "library_ms": dedup_main["library_ms"],   # torch.bmm against the equality table
     })
     for name, cases, main_name, run, line in (
-            ("quant_blocks", quant_cases, "main_int8", "1mbps_int8", 76),
+            ("quant_blocks", fused_cases, "main_int8", "1mbps_int8", 76),
             ("topk_blocks", topk_cases, "main", "1mbps_topk", 123)):
         main_case = next(c for c in cases if c["case"] == main_name)
         kernels.append({
@@ -3416,7 +3626,9 @@ def main() -> int:
             "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"],
-            "library_ms": main_case["library_ms"],   # quant: none; topk: torch.topk + scatter
+            # quant: the commit's launch, decoded payload included; no library
+            # call quantises. topk: torch.topk + scatter
+            "library_ms": main_case["library_ms"],
         })
     pop_main = next(c for c in pop_cases if c["case"] == "deliver")
     kernels.append({
@@ -3434,21 +3646,23 @@ def main() -> int:
         "bound_by": pop_main["bound_by"],
         "library_ms": None,          # no single PyTorch call takes a lexicographic argmin
     })
-    hist_main = next(c for c in hist_cases["cases"] if c["case"] == "merge")
+    # the update the loop launches: binning, bincount and add in one launch
+    hist_main = next(c for c in hist_cases["record_cases"] if c["case"] == "record_merge")
     kernels.append({
         "name": "hist_bincount",
         "route": "cuda",
         "source": "src/repro_torch/csrc/hist_bincount.cu",
         "replaces": "src/repro/kernels/hist_bincount.py:52",
         "launches": obs_paths["ticks_main"]["launches_obs_on"].get("hist_bincount", 0),
-        "max_abs_err": max(c["max_abs_err"] for c in hist_cases["cases"]),
+        "max_abs_err": max(c["max_abs_err"] for c in hist_cases["cases"]
+                           + hist_cases["record_cases"]),
         "ms": hist_main["ms"],
         "kernel_ms": hist_main["ms"],
         "call_ms": hist_main["call_ms"],
         "plain_ms": hist_main["plain_ms"],
         "bound_ms": hist_main["bound_ms"],
         "bound_by": hist_main["bound_by"],
-        "library_ms": hist_main["library_ms"],   # torch.bincount, host in the loop
+        "library_ms": hist_main["library_ms"],   # none: no one call bins on a log scale
     })
     distance_main = next(c for c in distance_cases if c["case"] == "main_k5")
     kernels.append({

@@ -18,27 +18,44 @@
 // The amax propagates NaN as jnp.max does, so such a block's scale is 1.0.
 //
 // Blocking. The reference blocks each leaf of the model on its own, in
-// sorted-name order, each zero-padded to whole blocks (at least one). The
-// kernels read the flat payload in place through a table of 2 * (L + 1)
-// int64: the first codec block of each leaf (then the total NB) and the
-// first flat value of each leaf (then P). Codec block b finds its leaf by a
-// binary search over the first row; the padding zeros are implicit. One
-// launch covers every leaf. Leaf offsets are not 16-byte aligned (the CNN's
-// `bout` starts at value 608, `conv1` at 618), so loads are scalar and
-// coalesced.
+// sorted-name order, each zero-padded to whole blocks (at least one); the
+// padding zeros are implicit here. One launch covers every leaf (up to
+// kMaxLeaves; a model with more takes one launch per kMaxLeaves leaves).
+// Leaf offsets in a flat payload are not 16-byte aligned (the CNN's `bout`
+// starts at value 608, `conv1` at 618).
 //
 // Bound at the main path's shape (the paper's CNN: P = 1,663,370 values in
 // 8 leaves, NB = 12,998 blocks of 128): quantisation reads 6.65 MB and
 // writes 1.66 MB of codes and 52 KB of scales, 8.37 MB or 2.5 us at 3.35
-// TB/s, against about 10 M f32 operations (0.15 us): bytes. Top-k reads the
+// TB/s, against about 10 M f32 operations (0.15 us): bytes; writing the
+// decoded payload as well adds 6.65 MB, 15.0 MB or 4.48 us. Top-k reads the
 // payload and the base (13.3 MB) and writes the masked delta (6.66 MB), 20
 // MB or 6.0 us; its selection is a few integer operations a value a step:
 // bytes. A dense rank (128 compares a value, 213 M in all) made the first
 // design issue-bound at 56 us.
 //
-// Design. Quantisation: one warp per codec block; lanes stride the block
-// (lane l takes values l, l + 32, ...) so each load and each byte store of
-// the warp is one contiguous run; the amax is a warp shuffle reduction.
+// Design. Quantisation (quant_leaves_kernel): the leaf table travels by
+// value as a __grid_constant__ kernel parameter (each leaf's own device
+// pointer, its first codec block and its first flat value), so a codec
+// block finds its leaf by a binary search through the constant cache with
+// no global load before its values, and the payload is read in place, leaf
+// by leaf, with no flat copy. A warp takes a codec block at a time, lane l
+// values 4l .. 4l + 3 of each 128 (as one 16-byte load where the leaf's
+// address allows, else as four scalar loads issued together), keeps them in
+// registers for the amax (a shuffle reduction) and the codes, and stores
+// its four codes as one 32-bit word: 128 bytes a warp. The grid holds at
+// most kQuantBlocksPerSm blocks of kQuantWarps warps an SM; each warp takes
+// codec blocks a grid apart, kQuantBatch of 128 values at a time (fewer of
+// larger blocks) with all their loads in flight before it reduces any: at
+// the CNN's 12,998 blocks one step. The kernel is bound by memory latency
+// and the launch: at the CNN it is faster than PyTorch's own copy of the
+// payload (chip_smoke.py 1d); a quarter or half as many warps an SM, one
+// or four codec blocks a step, streaming cache hints and a reciprocal
+// multiply checked against the half-integer boundaries in place of the
+// division were each no faster. Optionally the same launch writes the
+// decoded payload, float(code) * scale (the IEEE product dequant_blocks
+// computes), into a flat buffer at each value's own place, padding left
+// out.
 // Top-k: one warp per codec block too, the block's values in registers
 // (lane l holds values l, l + 32, ...: V = 1 to 32 a lane for blocks of up
 // to 1,024), ranked by selection, not by counting:
@@ -70,13 +87,20 @@
 
 namespace {
 
-constexpr int kWarps = 8;  // codec blocks per thread block in quantisation
+constexpr int kMaxLeaves = 32;       // leaves one quantisation launch takes
+constexpr int kQuantWarps = 8;       // warps of a quantisation block
+constexpr int kQuantBlocksPerSm = 8; // quantisation blocks an SM at most
+constexpr int kQuantBatch = 2;       // codec blocks of 128 values a warp loads at once
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Span {
   int64_t start;  // first flat value of the codec block
   int count;      // values present (the rest of the block is zero padding)
 };
 
+// The top-k kernel's table: 2 * (L + 1) int64 in device memory, the first
+// codec block of each leaf (then the total NB) and the first flat value of
+// each leaf (then P); a binary search over the first row.
 __device__ __forceinline__ Span block_span(const int64_t* __restrict__ table, int leaves,
                                            int64_t b, int block) {
   const int64_t* first_block = table;
@@ -95,39 +119,153 @@ __device__ __forceinline__ Span block_span(const int64_t* __restrict__ table, in
   return {start, static_cast<int>(left < 0 ? 0 : (left < block ? left : block))};
 }
 
+// The quantisation kernel's table, passed by value: leaves [0, leaves) of
+// one launch, first_block and first_value absolute (codes, scales and the
+// decoded payload are indexed by them), src[l] leaf l's first value.
+struct LeafTable {
+  const float* src[kMaxLeaves];
+  int64_t first_block[kMaxLeaves + 1];
+  int64_t first_value[kMaxLeaves + 1];
+  int leaves;
+};
+
+// One codec block of the quantisation kernel: where its values are read
+// (src, count of them present) and where its decoded values go (value, the
+// flat index of its first value).
+struct QuantSpan {
+  const float* src;
+  int64_t value;
+  int count;
+};
+
+__device__ __forceinline__ QuantSpan quant_span(const LeafTable& t, int64_t b, int block) {
+  int lo = 0, hi = t.leaves;  // first_block[lo] <= b < first_block[hi]
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) / 2;
+    if (t.first_block[mid] <= b) {
+      lo = mid;
+    } else {
+      hi = mid;
+    }
+  }
+  const int64_t offset = (b - t.first_block[lo]) * block;   // within the leaf
+  const int64_t left = t.first_value[lo + 1] - t.first_value[lo] - offset;
+  return {t.src[lo] + offset, t.first_value[lo] + offset,
+          static_cast<int>(left < 0 ? 0 : (left < block ? left : block))};
+}
+
+// Lane `lane`'s values of one codec block: v[4 j + k] is value 128 j + 4
+// lane + k, zero past the values present.
+template <int J>
+__device__ __forceinline__ void load_block(const QuantSpan& s, int block, int lane,
+                                           float (&v)[4 * J]) {
+  const bool vec = s.count == block && (block & 3) == 0 &&
+                   (reinterpret_cast<uintptr_t>(s.src) & 15) == 0;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int i = 128 * j + 4 * lane;
+    if (vec && i < block) {
+      const float4 q = __ldg(reinterpret_cast<const float4*>(s.src + i));
+      v[4 * j] = q.x;
+      v[4 * j + 1] = q.y;
+      v[4 * j + 2] = q.z;
+      v[4 * j + 3] = q.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[4 * j + k] = i + k < s.count ? __ldg(s.src + i + k) : 0.0f;
+    }
+  }
+}
+
 // the larger of a and b, NaN if either is NaN (jnp.max, torch.amax)
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (b > a || b != b) ? b : a;
 }
 
-__global__ void __launch_bounds__(kWarps * 32) quant_blocks_kernel(
-    const float* __restrict__ x, const int64_t* __restrict__ table, int leaves, int64_t nb,
-    int block, float qmax, int8_t* __restrict__ codes, float* __restrict__ scales) {
-  const int lane = threadIdx.x & 31;
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * kWarps + threadIdx.x / 32;
-  if (b >= nb) return;  // whole warps leave together
-  const Span span = block_span(table, leaves, b, block);
-  const float* src = x + span.start;
-
+template <int J>
+__device__ __forceinline__ void quant_block(const float (&v)[4 * J], const QuantSpan& s,
+                                            int64_t b, int block, float qmax, int lane,
+                                            int8_t* __restrict__ codes,
+                                            float* __restrict__ scales,
+                                            float* __restrict__ decoded) {
   float amax = 0.0f;
-  for (int i = lane; i < span.count; i += 32) amax = nan_max(amax, fabsf(src[i]));
+#pragma unroll
+  for (int i = 0; i < 4 * J; ++i) amax = nan_max(amax, fabsf(v[i]));
+#pragma unroll
   for (int offset = 16; offset > 0; offset >>= 1) {
-    amax = nan_max(amax, __shfl_xor_sync(0xffffffffu, amax, offset));
+    amax = nan_max(amax, __shfl_xor_sync(kFull, amax, offset));
   }
-  const float scale = amax > 0.0f ? amax / qmax : 1.0f;
-
+  const float scale = amax > 0.0f ? __fdiv_rn(amax, qmax) : 1.0f;
   int8_t* out = codes + b * block;
-  for (int i = lane; i < block; i += 32) {
-    const float v = i < span.count ? src[i] : 0.0f;
-    const float q = fminf(fmaxf(rintf(v / scale), -qmax), qmax);
-    out[i] = static_cast<int8_t>(static_cast<int>(q));
+  float* dec = decoded != nullptr ? decoded + s.value : nullptr;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int i = 128 * j + 4 * lane;
+    if (i >= block) continue;
+    int c[4];
+    uint32_t word = 0;   // the four codes, little-endian
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      c[k] = static_cast<int>(fminf(fmaxf(rintf(__fdiv_rn(v[4 * j + k], scale)), -qmax), qmax));
+      word |= (static_cast<uint32_t>(c[k]) & 0xffu) << (8 * k);
+    }
+    if ((block & 3) == 0) {
+      *reinterpret_cast<uint32_t*>(out + i) = word;
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (i + k < block) out[i + k] = static_cast<int8_t>(c[k]);
+      }
+    }
+    if (dec == nullptr) continue;
+    float d[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) d[k] = __fmul_rn(static_cast<float>(c[k]), scale);
+    if (i + 4 <= s.count && (reinterpret_cast<uintptr_t>(dec + i) & 15) == 0) {
+      *reinterpret_cast<float4*>(dec + i) = make_float4(d[0], d[1], d[2], d[3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (i + k < s.count) dec[i + k] = d[k];
+      }
+    }
   }
   if (lane == 0) scales[b] = scale;
 }
 
+// J: 128-value runs a lane covers (blocks of up to 128 J values)
+template <int J>
+__global__ void __launch_bounds__(kQuantWarps * 32) quant_leaves_kernel(
+    const __grid_constant__ LeafTable t, int block, float qmax, int8_t* __restrict__ codes,
+    float* __restrict__ scales, float* __restrict__ decoded) {
+  constexpr int kBatch = J >= kQuantBatch ? 1 : kQuantBatch / J;   // codec blocks a step
+  const int lane = threadIdx.x & 31;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * kQuantWarps;
+  const int64_t end = t.first_block[t.leaves];
+  for (int64_t b0 = t.first_block[0] + static_cast<int64_t>(blockIdx.x) * kQuantWarps +
+                    threadIdx.x / 32;
+       b0 < end; b0 += warps * kBatch) {   // whole warps leave together
+    // every load of the step goes out before any block is reduced
+    QuantSpan s[kBatch];
+    float v[kBatch][4 * J];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int64_t b = b0 + k * warps;
+      if (b < end) {
+        s[k] = quant_span(t, b, block);
+        load_block<J>(s[k], block, lane, v[k]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int64_t b = b0 + k * warps;
+      if (b < end) quant_block<J>(v[k], s[k], b, block, qmax, lane, codes, scales, decoded);
+    }
+  }
+}
+
 constexpr int kTopkWarps = 8;     // warps (each on its own codec block) per thread block
 constexpr int kRoundsMax = 32;    // k up to this, and up to 8 values a lane: rounds
-constexpr unsigned kFull = 0xffffffffu;
 
 // The k-th largest key of the warp, T (k >= 1, fewer than the warp's
 // nonzero keys), and how many of the keys equal to T are kept: those
@@ -271,31 +409,75 @@ cudaError_t check_args(int leaves, long long nb, int block) {
   return cudaSuccess;
 }
 
+template <int J>
+void launch_quant(const LeafTable& t, int block, float qmax, int8_t* codes, float* scales,
+                  float* decoded, int sms, cudaStream_t stream) {
+  const long long nb = t.first_block[t.leaves] - t.first_block[0];
+  long long grid = (nb + kQuantWarps - 1) / kQuantWarps;
+  if (grid > static_cast<long long>(sms) * kQuantBlocksPerSm) {
+    grid = static_cast<long long>(sms) * kQuantBlocksPerSm;
+  }
+  quant_leaves_kernel<J><<<static_cast<unsigned>(grid), kQuantWarps * 32, 0, stream>>>(
+      t, block, qmax, codes, scales, decoded);
+}
+
 }  // namespace
 
-// Pointers are device pointers, all contiguous: x the flat payload (P,) f32,
-// table (2, leaves + 1) int64 as above, codes (nb, block) int8, scales (nb,)
-// f32. qmax is 127 (int8) or 7 (int4). The stream is a cudaStream_t.
-// Returns the cudaError_t of the launch (0 on success).
-extern "C" int quant_blocks(const float* x, const long long* table, int leaves, long long nb,
-                            int block, int qmax, signed char* codes, float* scales, int device,
+// The most leaves one quant_leaves launch takes.
+extern "C" int quant_leaves_max_leaves() { return kMaxLeaves; }
+
+// Quantise a payload given leaf by leaf. Host arrays: src (leaves,) of
+// device pointers, each leaf's contiguous f32 values; first_block and
+// first_value (leaves + 1,) int64, the first codec block and the first flat
+// value of each leaf, then the totals NB and P. Device pointers, all
+// contiguous: codes (NB, block) int8, scales (NB,) f32 and, unless null,
+// decoded (P,) f32, which receives float(code) * scale at each value's flat
+// place. qmax is 127 (int8) or 7 (int4). The stream is a cudaStream_t. One
+// launch per kMaxLeaves leaves; returns the cudaError_t of the first that
+// fails (0 on success).
+extern "C" int quant_leaves(const void* const* src, const long long* first_block,
+                            const long long* first_value, int leaves, int block, int qmax,
+                            signed char* codes, float* scales, float* decoded, int device,
                             void* stream) {
-  cudaError_t err = check_args(leaves, nb, block);
+  cudaError_t err = check_args(leaves, first_block[leaves], block);
   if (err != cudaSuccess || qmax < 1 || qmax > 127) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long grid = (nb + kWarps - 1) / kWarps;
-  quant_blocks_kernel<<<static_cast<unsigned>(grid), kWarps * 32, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      x, reinterpret_cast<const int64_t*>(table), leaves, nb, block, static_cast<float>(qmax),
-      reinterpret_cast<int8_t*>(codes), scales);
-  return static_cast<int>(cudaGetLastError());
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto st = static_cast<cudaStream_t>(stream);
+  auto* c = reinterpret_cast<int8_t*>(codes);
+  const float q = static_cast<float>(qmax);
+  for (int l0 = 0; l0 < leaves; l0 += kMaxLeaves) {
+    LeafTable t = {};
+    t.leaves = leaves - l0 < kMaxLeaves ? leaves - l0 : kMaxLeaves;
+    for (int l = 0; l < t.leaves; ++l) t.src[l] = static_cast<const float*>(src[l0 + l]);
+    for (int l = 0; l <= t.leaves; ++l) {
+      t.first_block[l] = first_block[l0 + l];
+      t.first_value[l] = first_value[l0 + l];
+    }
+    if (block <= 128) {
+      launch_quant<1>(t, block, q, c, scales, decoded, sms, st);
+    } else if (block <= 256) {
+      launch_quant<2>(t, block, q, c, scales, decoded, sms, st);
+    } else if (block <= 512) {
+      launch_quant<4>(t, block, q, c, scales, decoded, sms, st);
+    } else {
+      launch_quant<8>(t, block, q, c, scales, decoded, sms, st);
+    }
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 // x the flat payload (P,) f32, base the flat base (P,) f32 or null (then the
-// kernel ranks x itself), table as for quant_blocks, out (nb, block) f32:
+// kernel ranks x itself), table (2, leaves + 1) int64 (the first codec
+// block of each leaf, then NB; the first flat value of each leaf, then P),
+// out (nb, block) f32:
 // the masked delta, padding included. k is the number kept per block.
 extern "C" int topk_blocks(const float* x, const float* base, const long long* table,
                            int leaves, long long nb, int block, int k, float* out, int device,

@@ -451,8 +451,9 @@ class _GossipLedger:
             # views of the slot's row, read in stream order before the write
             # below (an int index: no host-to-device copy, no sync)
             base = unflatten_params(self.net.bank.rows[slot], self.net.bank.shapes)
-            enc = codec.encode(prepared.new_params, base)
-            prepared = prepared._replace(new_params=codec.decode(enc, base))
+            # int8/int4 on a card: one launch encodes and decodes
+            enc, decoded = codec.encode_decode(prepared.new_params, base)
+            prepared = prepared._replace(new_params=decoded)
         else:
             enc = prepared.new_params
         dag_i, bank = _gossip_commit(dag_i, self.net.bank, node_id, t1, prepared, self.seq)

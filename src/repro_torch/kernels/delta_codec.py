@@ -30,16 +30,20 @@ NaN to int8).
 
 A model is blocked leaf by leaf, in sorted-name order, each leaf zero-padded
 to whole blocks (``BlockLayout``): the paper's CNN gives 12,998 blocks, not
-the 12,996 of its flat 1,663,370 values. ``quant_leaves`` and
-``topk_leaves`` take the flat payload and its layout and launch the kernel
-once for all leaves, reading the payload (and the base) in place.
+the 12,996 of its flat 1,663,370 values. ``quant_params`` takes the leaves
+themselves, ``quant_leaves`` and ``topk_leaves`` the flat payload, with its
+layout; each launches its kernel once for all leaves (quantisation once per
+32 leaves), reading the payload (and the base) in place.
 
 ``DeltaCodec.encode(params, base)`` maps a commit's payload (a dict of
 leaves) to its wire form: ``{"codes": {name: (nb, block) int8}, "scales":
 {name: (nb,) f32}}`` for int8/int4, ``{"delta": {name: (nb, block) f32}}``
 for topk (the masked delta against ``base``, the slot's content before the
-commit overwrites it). ``decode(enc, base)`` inverts it. ``codec_key`` maps
-every codec that prices like raw bytes to ``None``.
+commit overwrites it). ``decode(enc, base)`` inverts it, and
+``encode_decode`` gives both: for int8/int4 on a card one launch
+(``quant_params`` with ``decode``) reads the leaves in place and writes the
+codes, the scales and the decoded payload. ``codec_key`` maps every codec
+that prices like raw bytes to ``None``.
 """
 from __future__ import annotations
 
@@ -186,13 +190,15 @@ def _device_table(layout: BlockLayout, device: torch.device) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load_library("delta_codec.cu")
-    lib.quant_blocks.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,      # x, table, leaves
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int,       # nb, block, qmax
-        ctypes.c_void_p, ctypes.c_void_p,                    # codes, scales
+    lib.quant_leaves.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # src, first_block, first_value
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,            # leaves, block, qmax
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # codes, scales, decoded
         ctypes.c_int, ctypes.c_void_p,                       # device, stream
     ]
-    lib.quant_blocks.restype = ctypes.c_int
+    lib.quant_leaves.restype = ctypes.c_int
+    lib.quant_leaves_max_leaves.argtypes = []
+    lib.quant_leaves_max_leaves.restype = ctypes.c_int
     lib.topk_blocks.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # x, base, table
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int,       # leaves, nb, block
@@ -203,6 +209,14 @@ def _library() -> ctypes.CDLL:
     lib.delta_codec_error_string.argtypes = [ctypes.c_int]
     lib.delta_codec_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=64)
+def _host_table(layout: BlockLayout):
+    """The layout's first blocks and first values as host int64 arrays, the
+    quantisation kernel's leaf table (it travels by value)."""
+    row = ctypes.c_longlong * (len(layout.names) + 1)
+    return row(*layout.first_block), row(*layout.first_value)
 
 
 def _check_size(name: str, t: torch.Tensor, layout: BlockLayout) -> None:
@@ -239,6 +253,33 @@ def _on_cpu(flat: torch.Tensor, what: str) -> bool:
     return False
 
 
+def _unblocked(blocks: torch.Tensor, layout: BlockLayout) -> torch.Tensor:
+    """(P,): the values of (NB, block) rows leaf by leaf, padding dropped."""
+    return torch.cat([blocks[b0:b1].reshape(-1)[:v1 - v0] for b0, b1, v0, v1 in zip(
+        layout.first_block, layout.first_block[1:], layout.first_value, layout.first_value[1:])])
+
+
+def _quant_launch(leaves, layout: BlockLayout, qmax: int, decode: bool):
+    """One kernel launch per ``quant_leaves_max_leaves()`` leaves, reading
+    each leaf (a contiguous f32 tensor of its layout's size) in place."""
+    dev = leaves[0].device
+    nb, block = layout.num_blocks, layout.block
+    codes = torch.empty((nb, block), dtype=torch.int8, device=dev)
+    scales = torch.empty((nb,), dtype=torch.float32, device=dev)
+    decoded = torch.empty((layout.num_values,), dtype=torch.float32, device=dev) if decode \
+        else None
+    first_block, first_value = _host_table(layout)
+    src = (ctypes.c_void_p * len(leaves))(*(leaf.data_ptr() for leaf in leaves))
+    lib = _library()
+    code = lib.quant_leaves(src, first_block, first_value, len(leaves), block, int(qmax),
+                            codes.data_ptr(), scales.data_ptr(),
+                            None if decoded is None else decoded.data_ptr(), dev.index or 0,
+                            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, code, QUANT_NAME)
+    cuda_build.LAUNCHES[QUANT_NAME] += -(-len(leaves) // lib.quant_leaves_max_leaves())
+    return codes, scales, decoded
+
+
 def quant_leaves(flat: torch.Tensor, layout: BlockLayout, qmax: int):
     """Quantise a flat payload (P,) blocked by ``layout``: ``(codes (NB,
     block) int8, scales (NB,) f32)``. One kernel launch on CUDA, reading the
@@ -247,16 +288,38 @@ def quant_leaves(flat: torch.Tensor, layout: BlockLayout, qmax: int):
     if _on_cpu(flat, QUANT_NAME):
         return quant_blocks_plain(blocked(flat, layout), qmax)
     _check_flat("payload", flat, layout, flat.device)
-    nb, block = layout.num_blocks, layout.block
-    codes = torch.empty((nb, block), dtype=torch.int8, device=flat.device)
-    scales = torch.empty((nb,), dtype=torch.float32, device=flat.device)
-    table, device, stream = _launch_args(flat, layout)
-    lib = _library()
-    code = lib.quant_blocks(flat.data_ptr(), table.data_ptr(), len(layout.names), nb, block,
-                            int(qmax), codes.data_ptr(), scales.data_ptr(), device, stream)
-    _raise_on(lib, code, QUANT_NAME)
-    cuda_build.LAUNCHES[QUANT_NAME] += 1
+    fv = layout.first_value
+    codes, scales, _ = _quant_launch([flat[v0:v1] for v0, v1 in zip(fv, fv[1:])], layout, qmax,
+                                     decode=False)
     return codes, scales
+
+
+def quant_params(params: Dict[str, torch.Tensor], layout: BlockLayout, qmax: int,
+                 decode: bool = False):
+    """Quantise a payload given as leaves (a dict, blocked by ``layout`` in
+    its sorted-name order): ``(codes (NB, block) int8, scales (NB,) f32,
+    decoded)``, ``decoded`` the flat (P,) f32 ``dequant_blocks`` of the codes
+    with the padding dropped when ``decode``, else None. One kernel launch on
+    CUDA, reading each leaf in place through its own pointer (no flat copy)
+    and, with ``decode``, writing the decoded payload in the same launch;
+    the plain versions on the CPU."""
+    names = tuple(sorted(params))
+    if names != layout.names:
+        raise ValueError(f"the payload's leaves {names} are not the layout's {layout.names}")
+    leaves = [params[name].reshape(-1) for name in names]
+    for name, leaf, v0, v1 in zip(names, leaves, layout.first_value, layout.first_value[1:]):
+        if leaf.shape[0] != v1 - v0:
+            raise ValueError(f"leaf {name} holds {leaf.shape[0]} values, its layout {v1 - v0}")
+    if _on_cpu(leaves[0], QUANT_NAME):
+        codes, scales = quant_blocks_plain(blocked(torch.cat(leaves), layout), qmax)
+        decoded = _unblocked(dequant_blocks_plain(codes, scales), layout) if decode else None
+        return codes, scales, decoded
+    dev = leaves[0].device
+    leaves = [leaf.to(torch.float32).contiguous() for leaf in leaves]
+    if any(leaf.device != dev for leaf in leaves):
+        raise ValueError(f"every leaf must lie on {dev}")
+    _check_flat("payload", leaves[0], layout, dev)
+    return _quant_launch(leaves, layout, qmax, decode)
 
 
 def topk_leaves(flat: torch.Tensor, base: Optional[torch.Tensor], layout: BlockLayout,
@@ -365,12 +428,27 @@ class DeltaCodec:
         if self.kind == "none":
             return params
         layout = leaf_layout(leaf_shapes(params), self.block)
-        flat = flatten_params(params)
         if self.kind in _QMAX:
-            codes, scales = quant_leaves(flat, layout, _QMAX[self.kind])
+            codes, scales, _ = quant_params(params, layout, _QMAX[self.kind])
             return {"codes": layout.split(codes), "scales": layout.split(scales)}
-        delta = topk_leaves(flat, flatten_params(base), layout, self.topk_k())
+        delta = topk_leaves(flatten_params(params), flatten_params(base), layout, self.topk_k())
         return {"delta": layout.split(delta)}
+
+    def encode_decode(self, params: Dict[str, torch.Tensor], base: Dict[str, torch.Tensor]):
+        """``(encode(params, base), decode(that, base))``, bitwise. For int8
+        and int4 on a card, one kernel launch writes the codes, the scales
+        and the decoded payload (leaves: views of one fresh flat buffer,
+        shaped as ``base``'s); otherwise encode, then decode."""
+        first = next(iter(params.values()))
+        if self.kind not in _QMAX or first.device.type != "cuda":
+            enc = self.encode(params, base)
+            return enc, self.decode(enc, base)
+        layout = leaf_layout(leaf_shapes(params), self.block)
+        codes, scales, flat = quant_params(params, layout, _QMAX[self.kind], decode=True)
+        enc = {"codes": layout.split(codes), "scales": layout.split(scales)}
+        at = dict(zip(layout.names, layout.first_value))
+        return enc, {name: flat[at[name]:at[name] + b.numel()].view(b.shape).to(b.dtype)
+                     for name, b in base.items()}
 
     def decode(self, enc, base: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Wire form -> payload, leaves shaped and typed as ``base``'s."""

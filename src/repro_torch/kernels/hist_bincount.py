@@ -1,4 +1,4 @@
-"""The streaming histograms' weighted bincount: kernel, plain version, dispatcher.
+"""The streaming histograms' weighted bincount: kernel, plain version, dispatchers.
 
 Replaces the TPU kernel ``repro/kernels/hist_bincount.py::hist_bincount_pallas``
 (``_bincount_kernel``). For i32 indices ``idx`` (m,) and i32 weights (m,),
@@ -7,10 +7,22 @@ Replaces the TPU kernel ``repro/kernels/hist_bincount.py::hist_bincount_pallas``
 dropped (never clamped into a neighbouring bin). The sums are integers, so
 the kernel equals the plain version bitwise whatever order it adds in.
 
-``hist_bincount`` is what ``repro_torch.obs.hist.record`` calls: it launches
-the CUDA kernel (``repro_torch/csrc/hist_bincount.cu``) for CUDA tensors,
-raising if it cannot build or launch, and takes ``hist_bincount_plain`` (the
-port of ``repro.kernels.ref.hist_bincount_ref``) only for CPU tensors.
+One CUDA kernel (``repro_torch/csrc/hist_bincount.cu``) serves two entries:
+
+``hist_bincount(idx, w, num_bins)``   the TPU kernel's contract: the
+        kernel for CUDA tensors, raising if it cannot build or launch, and
+        ``hist_bincount_plain`` (the port of
+        ``repro.kernels.ref.hist_bincount_ref``) only for CPU tensors.
+``record_binned(counts, values, weights, lo, ratio, bins)``   what
+        ``repro_torch.obs.hist.record`` launches on a card: ``counts`` plus
+        the weighted bincount of the f32 ``values`` binned as
+        ``obs.hist.bin_index`` bins them, bit for bit, in one launch that
+        reads bool or i32 weights as they are and writes a fresh output
+        (``counts`` is not modified). CUDA tensors only: its plain version,
+        the CPU path, is ``obs.hist.record_plain``.
+
+Each launch adds one to ``cuda_build.LAUNCHES["hist_bincount"]``; an empty
+batch launches nothing.
 """
 from __future__ import annotations
 
@@ -23,6 +35,7 @@ from repro_torch.kernels import cuda_build
 
 NAME = "hist_bincount"
 MAX_BINS = 12288        # the kernel's shared-memory histogram, 48 KB
+WEIGHT_DTYPES = (torch.bool, torch.int32)   # read by the kernel as they are
 
 
 def hist_bincount_plain(idx: torch.Tensor, weights: torch.Tensor, num_bins: int) -> torch.Tensor:
@@ -40,27 +53,58 @@ def hist_bincount_plain(idx: torch.Tensor, weights: torch.Tensor, num_bins: int)
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load_library("hist_bincount.cu")
     lib.hist_bincount.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p,        # idx, weights
-        ctypes.c_longlong, ctypes.c_int,         # m, num_bins
-        ctypes.c_void_p,                         # out
+        ctypes.c_void_p, ctypes.c_int,           # x, values (1: f32 to bin; 0: i32 indices)
+        ctypes.c_void_p, ctypes.c_int,           # weights, w_bool
+        ctypes.c_longlong,                       # m
+        ctypes.c_float, ctypes.c_float,          # lo, ratio
+        ctypes.c_int,                            # num_bins
+        ctypes.c_void_p, ctypes.c_void_p,        # counts (or null), out
         ctypes.c_int, ctypes.c_void_p,           # device, stream
     ]
     lib.hist_bincount.restype = ctypes.c_int
+    lib.hist_bincount_cluster_blocks.argtypes = [ctypes.c_longlong, ctypes.c_int]
+    lib.hist_bincount_cluster_blocks.restype = ctypes.c_int
     lib.hist_bincount_error_string.argtypes = [ctypes.c_int]
     lib.hist_bincount_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check_cuda_args(idx, weights, num_bins: int) -> None:
-    if idx.dim() != 1 or weights.shape != idx.shape:
-        raise ValueError(f"need two (m,) vectors, got {tuple(idx.shape)} and "
-                         f"{tuple(weights.shape)}")
-    if idx.dtype != torch.int32 or weights.dtype != torch.int32:
-        raise TypeError(f"need i32 idx and weights, got {idx.dtype} and {weights.dtype}")
-    if weights.device != idx.device or not idx.is_contiguous() or not weights.is_contiguous():
-        raise ValueError(f"idx and weights must be contiguous on {idx.device}")
+def _check_vector(name: str, t: torch.Tensor, device: torch.device) -> None:
+    if t.dim() != 1 or t.device != device or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous (m,) vector on {device}, got "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def _check_bins(num_bins: int) -> None:
     if not 1 <= num_bins <= MAX_BINS:
         raise ValueError(f"need 1 <= num_bins <= {MAX_BINS}, got {num_bins}")
+
+
+def _launch(x, values: bool, weights, lo: float, ratio: float, num_bins: int, counts):
+    """One launch of the kernel over ``x`` and ``weights``; a fresh output."""
+    weights = weights if weights.dtype in WEIGHT_DTYPES else weights.to(torch.int32)
+    _check_vector("weights", weights, x.device)
+    if weights.shape != x.shape:
+        raise ValueError(f"need (m,) samples and weights, got {tuple(x.shape)} and "
+                         f"{tuple(weights.shape)}")
+    out = torch.empty((num_bins,), dtype=torch.int32, device=x.device)
+    lib = _library()
+    code = lib.hist_bincount(
+        x.data_ptr(), int(values), weights.data_ptr(), int(weights.dtype == torch.bool),
+        x.shape[0], lo, ratio, num_bins, None if counts is None else counts.data_ptr(),
+        out.data_ptr(), x.device.index or 0, torch.cuda.current_stream(x.device).cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"hist_bincount launch failed: "
+                           f"{lib.hist_bincount_error_string(code).decode()} ({code})")
+    cuda_build.LAUNCHES[NAME] += 1
+    return out
+
+
+def cluster_blocks(m: int, device: int = 0) -> int:
+    """The blocks of the cluster one launch over ``m`` samples runs on card
+    ``device`` (1 to 16: 16 where the card places a cluster that large, else
+    at most 8), or 0 where ``m`` takes the grid-stride route."""
+    return _library().hist_bincount_cluster_blocks(m, device)
 
 
 def hist_bincount(idx: torch.Tensor, weights: torch.Tensor, num_bins: int) -> torch.Tensor:
@@ -70,17 +114,34 @@ def hist_bincount(idx: torch.Tensor, weights: torch.Tensor, num_bins: int) -> to
         return hist_bincount_plain(idx, weights, num_bins)
     if idx.device.type != "cuda":
         raise ValueError(f"hist_bincount runs on cuda or cpu tensors, not {idx.device}")
-    _check_cuda_args(idx, weights, num_bins)
-    out = torch.zeros((num_bins,), dtype=torch.int32, device=idx.device)
+    _check_vector("idx", idx, idx.device)
+    if idx.dtype != torch.int32:
+        raise TypeError(f"need i32 idx, got {idx.dtype}")
+    _check_bins(num_bins)
     if idx.shape[0] == 0:       # nothing to count: no launch
-        return out
-    lib = _library()
-    code = lib.hist_bincount(
-        idx.data_ptr(), weights.data_ptr(), idx.shape[0], num_bins, out.data_ptr(),
-        idx.device.index or 0, torch.cuda.current_stream(idx.device).cuda_stream,
-    )
-    if code != 0:
-        raise RuntimeError(f"hist_bincount launch failed: "
-                           f"{lib.hist_bincount_error_string(code).decode()} ({code})")
-    cuda_build.LAUNCHES[NAME] += 1
-    return out
+        return torch.zeros((num_bins,), dtype=torch.int32, device=idx.device)
+    return _launch(idx, False, weights, 0.0, 0.0, num_bins, None)
+
+
+def record_binned(counts: torch.Tensor, values: torch.Tensor, weights: torch.Tensor,
+                  lo: float, ratio: float, bins: int) -> torch.Tensor:
+    """(bins + 1,) i32: ``counts`` + the weighted bincount of the f32
+    ``values`` (m,) binned by ``obs.hist.bin_index``'s rule with its f32
+    ``lo`` and ``ratio``, in one launch. Weights (m,) bool or i32 are read
+    as they are (another integer type is cast to i32 first). CUDA tensors
+    only."""
+    if values.device.type != "cuda":
+        raise ValueError(f"record_binned launches on cuda tensors, not {values.device}")
+    _check_vector("values", values, values.device)
+    if values.dtype != torch.float32:
+        raise TypeError(f"need f32 values, got {values.dtype}")
+    _check_bins(bins + 1)
+    if (tuple(counts.shape) != (bins + 1,) or counts.dtype != torch.int32
+            or counts.device != values.device or not counts.is_contiguous()):
+        raise ValueError(f"counts must be a contiguous ({bins + 1},) i32 vector on "
+                         f"{values.device}")
+    if not lo > 0.0:
+        raise ValueError(f"need lo > 0, got {lo}")
+    if values.shape[0] == 0:    # nothing to count: no launch
+        return counts.clone()
+    return _launch(values, True, weights, lo, ratio, bins + 1, counts)

@@ -44,10 +44,11 @@ bins.
 
 Collection is a pure read of the simulation state: the round bodies are
 functional, so the pre-round replicas are the loop's own, and nothing here
-writes them. The bin scatter-add is ``repro_torch.kernels.hist_bincount``,
-which launches the CUDA kernel on a card and runs its plain version on the
-CPU; unlike the reference's, ``HistConfig`` has no ``impl``, because the
-device of the counts already makes that choice.
+writes them. On a card ``record`` (binning, bincount and add) is one launch
+of the CUDA kernel of ``repro_torch.kernels.hist_bincount``, which bins as
+``bin_index`` does, bit for bit; on the CPU it is ``record_plain``, those
+three steps in PyTorch. Unlike the reference's, ``HistConfig`` has no
+``impl``, because the device of the counts already makes that choice.
 """
 from __future__ import annotations
 
@@ -141,6 +142,13 @@ def xla_log_f32(x: torch.Tensor) -> torch.Tensor:
     return _fma(e, _Q2, r + s)
 
 
+def bin_params(cfg: HistConfig):
+    """``(lo, ratio, bins)``: the binning's f32 constants (as Python floats)
+    and its number of regular bins."""
+    b = int(cfg.bins)
+    return float(np.float32(cfg.lo)), float(np.float32(np.log(cfg.hi / cfg.lo) / b)), b
+
+
 def bin_index(values: torch.Tensor, cfg: HistConfig) -> torch.Tensor:
     """i32 bin index in [0, bins] for each value, the reference's f32
     ``clip(ceil(log(max(v, lo) / lo) / ratio) - 1, 0, bins)``.
@@ -148,9 +156,7 @@ def bin_index(values: torch.Tensor, cfg: HistConfig) -> torch.Tensor:
     ``v <= lo`` maps to 0, ``v > hi`` (+inf included) to the overflow bin, a
     NaN to 0, as the reference's saturating f32 -> i32 conversion gives them.
     """
-    b = int(cfg.bins)
-    ratio = float(np.float32(np.log(cfg.hi / cfg.lo) / b))
-    lo = float(np.float32(cfg.lo))
+    lo, ratio, b = bin_params(cfg)
     v = values.to(torch.float32)
     v = torch.where(torch.isnan(v), v, torch.clamp(v, min=lo))
     # divisions by tensors: a Python scalar divisor is a reciprocal multiply on a card
@@ -162,16 +168,30 @@ def bin_index(values: torch.Tensor, cfg: HistConfig) -> torch.Tensor:
     return (torch.ceil(x).to(torch.int32) - 1).clamp(0, b)
 
 
-def record(counts: torch.Tensor, values: torch.Tensor, weights: torch.Tensor,
-           cfg: HistConfig) -> torch.Tensor:
-    """``counts`` + the weighted bincount of ``values`` binned per ``cfg``.
-
-    ``values`` and ``weights`` flatten together; zero weights count nothing,
-    which is how a masked batch keeps a fixed shape.
-    """
+def record_plain(counts: torch.Tensor, values: torch.Tensor, weights: torch.Tensor,
+                 cfg: HistConfig) -> torch.Tensor:
+    """``record`` in PyTorch operations: ``bin_index``, the plain bincount,
+    the add. The kernel's oracle and the CPU path."""
     idx = bin_index(values.reshape(-1), cfg)
     w = weights.reshape(-1).to(torch.int32)
-    return counts + bincount_kernel.hist_bincount(idx, w, int(cfg.bins) + 1)
+    return counts + bincount_kernel.hist_bincount_plain(idx, w, int(cfg.bins) + 1)
+
+
+def record(counts: torch.Tensor, values: torch.Tensor, weights: torch.Tensor,
+           cfg: HistConfig) -> torch.Tensor:
+    """``counts`` + the weighted bincount of ``values`` binned per ``cfg``: a
+    fresh tensor, ``counts`` is not modified.
+
+    ``values`` and ``weights`` flatten together; zero weights count nothing,
+    which is how a masked batch keeps a fixed shape. On a card one kernel
+    launch does it all (``kernels.hist_bincount.record_binned``, bitwise
+    ``record_plain``); on the CPU ``record_plain``.
+    """
+    if counts.device.type == "cpu":
+        return record_plain(counts, values, weights, cfg)
+    lo, ratio, b = bin_params(cfg)
+    return bincount_kernel.record_binned(counts, values.reshape(-1).to(torch.float32),
+                                         weights.reshape(-1), lo, ratio, b)
 
 
 def rows_propagated(dags: DagState) -> torch.Tensor:

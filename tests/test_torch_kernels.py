@@ -39,19 +39,29 @@ and ``pop_head``'s pinned host mirror must equal the device words
 reference in ``tests/test_torch_events.py``, the kernel's fold in
 ``tests/test_torch_event_pop_keys.py``.
 
-The wire codec, ``kernels/delta_codec.py``: codes, scales and masked deltas
-must equal the plain versions bitwise (``test_quant_kernel_on_card``,
+The wire codec, ``kernels/delta_codec.py``: codes, scales, decoded payloads
+and masked deltas must equal the plain versions bitwise
+(``test_quant_kernel_on_card``, ``test_quant_params_kernel_on_card``: leaves
+read through their own pointers, aligned or not, blocks of 32 to 1,024 and
+not a multiple of 4, 41 leaves in two launches, the decoded payload in the
+same launch; ``test_encode_decode_on_card_is_decode_of_encode``;
 ``test_topk_kernel_on_card``, ``test_topk_kernel_dense_on_card``: blocks of
 32, 33 and 1,024, k from 0 to B, blocks all equal and all NaN;
 ``test_encode_on_card_equals_the_cpu``); the plain versions are held
-against the reference in ``tests/test_torch_codec.py``, the top-k kernel's
-selection in ``tests/test_torch_topk_select.py``.
+against the reference in ``tests/test_torch_codec.py``, the quantisation
+kernel's lanes and leaf table in ``tests/test_torch_quant_lanes.py``, the
+top-k kernel's selection in ``tests/test_torch_topk_select.py``.
 
-The histogram bincount, ``kernels/hist_bincount.py``: integer sums, so the
-kernel must equal the plain version bitwise (``test_hist_bincount_kernel_on_card``),
-out-of-range and negative indices dropped; the plain version is held against
-the reference's oracle and its Pallas kernel in ``tests/test_torch_hist.py``
-and here (``test_hist_bincount_plain_matches_ref_and_pallas``).
+The histogram update, ``kernels/hist_bincount.py``: integer sums, so the
+kernel must equal the plain version bitwise, by its idx route
+(``test_hist_bincount_kernel_on_card``, out-of-range and negative indices
+dropped) and by its fused route, which bins as ``obs.hist.bin_index`` does
+(``test_record_kernel_on_card``: every f32 edge of two configurations,
+special values, bool and i32 weights, one cluster and the grid-stride
+route); the plain version is held against the reference's oracle and its
+Pallas kernel in ``tests/test_torch_hist.py`` and here
+(``test_hist_bincount_plain_matches_ref_and_pallas``), the fused route's
+arithmetic and partition in ``tests/test_torch_hist_record.py``.
 
 The pairwise model distance, ``kernels/model_distance.py``: sums of N
 products in another order, and a diagonal that cancels to near 0, so each
@@ -108,6 +118,7 @@ from repro_torch.kernels import gossip_merge as t_gm
 from repro_torch.kernels import hist_bincount as t_hb
 from repro_torch.kernels import model_distance as t_md
 from repro_torch.kernels import wkv as t_wkv
+from repro_torch.obs import hist as t_hist
 
 
 @pytest.fixture(scope="module")
@@ -643,6 +654,74 @@ def test_encode_on_card_equals_the_cpu(cuda, kind):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("sizes,case,block", [
+    (CNN_SIZES, "random", 128), (RAGGED_SIZES, "random", 128), (RAGGED_SIZES, "zero", 128),
+    (CNN_SIZES, "halves", 128), (RAGGED_SIZES, "random", 100), (RAGGED_SIZES, "random", 32),
+    (RAGGED_SIZES, "random", 256), (RAGGED_SIZES, "random", 1024),
+    (tuple(range(41)), "random", 128)])
+@pytest.mark.parametrize("qmax", [127, 7])
+def test_quant_params_kernel_on_card(cuda, sizes, case, block, qmax):
+    """Leaves read in place through their own pointers (slices of one flat
+    payload, offsets not 16-byte aligned, and tensors of their own), codes,
+    scales and the decoded payload bitwise the plain versions; blocks not a
+    multiple of 4 values, of 32 to 1,024, and 41 leaves (two launches)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(len(sizes) + qmax + block)
+    x, _ = codec_payload(gen, sizes, case, cuda)
+    layout = t_dc.leaf_layout(tuple((f"l{i:02d}", (n,)) for i, n in enumerate(sizes)), block)
+    fv = layout.first_value
+    sliced = {name: x[v0:v1] for name, v0, v1 in zip(layout.names, fv, fv[1:])}
+    want_c, want_s = t_dc.quant_blocks_plain(t_dc.blocked(x, layout), qmax)
+    want_d = t_dc._unblocked(t_dc.dequant_blocks_plain(want_c, want_s), layout)
+    launches = -(-len(sizes) // 32)
+    for params in (sliced, {name: v.clone() for name, v in sliced.items()}):
+        before = cuda_build.LAUNCHES[t_dc.QUANT_NAME]
+        codes, scales, decoded = t_dc.quant_params(params, layout, qmax, decode=True)
+        torch.cuda.synchronize()
+        assert cuda_build.LAUNCHES[t_dc.QUANT_NAME] == before + launches
+        assert torch.equal(codes, want_c) and same_bits(scales, want_s)
+        assert same_bits(decoded, want_d)
+        codes, scales, none = t_dc.quant_params(params, layout, qmax)
+        assert none is None and torch.equal(codes, want_c) and same_bits(scales, want_s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "int4", "topk"])
+def test_encode_decode_on_card_is_decode_of_encode(cuda, kind):
+    """``encode_decode`` on the card: the keys and tensors of ``encode``, the
+    payload of ``decode``, bitwise, in one quantisation launch; and both
+    equal to the CPU's."""
+    from repro_torch.fl.tasks import CNNTask
+
+    params = {k: v + 0.01 * torch.randn_like(v) for k, v in CNNTask().init(0, "cpu").items()}
+    base = {k: v * 0.9 for k, v in params.items()}
+    on_card = ({k: v.to(cuda) for k, v in params.items()},
+               {k: v.to(cuda) for k, v in base.items()})
+    codec = t_dc.DeltaCodec(kind)
+    before = cuda_build.LAUNCHES[t_dc.QUANT_NAME]
+    enc, dec = codec.encode_decode(*on_card)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES[t_dc.QUANT_NAME] == before + (kind != "topk")
+    want_enc = codec.encode(*on_card)
+    want_dec = codec.decode(want_enc, on_card[1])
+    cpu_enc, cpu_dec = codec.encode_decode(params, base)
+    assert enc.keys() == want_enc.keys() == cpu_enc.keys()
+    for part in enc:
+        assert enc[part].keys() == want_enc[part].keys()
+        for name in enc[part]:
+            a, b, c = enc[part][name], want_enc[part][name], cpu_enc[part][name]
+            assert a.dtype == b.dtype and a.shape == b.shape, (part, name)
+            if a.dtype == torch.int8:
+                assert torch.equal(a, b) and torch.equal(a.cpu(), c), (part, name)
+            else:
+                assert same_bits(a, b) and same_bits(a.cpu(), c), (part, name)
+    assert dec.keys() == want_dec.keys()
+    for name in dec:
+        assert dec[name].shape == base[name].shape
+        assert same_bits(dec[name], want_dec[name]) and same_bits(dec[name].cpu(), cpu_dec[name])
+
+
+@pytest.mark.cuda
 def test_afford_divides_exactly_on_card(cuda):
     """A budget of exactly m chunks buys m chunks on the card as on the CPU,
     for the raw and the encoded granules of the 7 MB model."""
@@ -782,6 +861,70 @@ def test_hist_bincount_kernel_on_card(cuda, m, num_bins):
     assert cuda_build.LAUNCHES["hist_bincount"] == before
     with pytest.raises(ValueError, match="num_bins"):
         t_hb.hist_bincount(idx, w, t_hb.MAX_BINS + 1)
+
+
+def record_values(rng, cfg, m):
+    """(m,) f32: every edge of ``cfg`` with its two neighbours, 0, -0.0,
+    negatives, subnormals, NaN, +-inf, 3e38 and the sync-period multiples
+    first, then log-uniform values over the bins and past them."""
+    e = t_hist.edges(cfg).astype(np.float32)
+    special = np.concatenate([
+        e, np.nextafter(e, np.float32(np.inf)), np.nextafter(e, np.float32(-np.inf)),
+        np.arange(1, 33, dtype=np.float32) * np.float32(0.25),
+        np.float32([0.0, -0.0, -1.0, -3e38, 1e-45, 1e-40, np.nan, np.inf, -np.inf, 3e38])])
+    wide = np.exp(rng.uniform(np.log(cfg.lo) - 3, np.log(cfg.hi) + 3, max(m, 1))).astype(
+        np.float32)
+    return np.concatenate([special, wide])[:m] if m >= special.size else wide[:m]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", [t_hist.HistConfig(), t_hist.HistConfig(bins=16, lo=1e-3, hi=1e3)])
+@pytest.mark.parametrize("m", [1, 512, 51_200, 65_536, 65_537, 300_001])
+@pytest.mark.parametrize("weights", ["bool", "i32"])
+def test_record_kernel_on_card(cuda, cfg, m, weights):
+    """``record`` on the card, one launch binning as ``bin_index`` does,
+    bitwise ``record_plain`` on the card and on the CPU, ``counts`` left as
+    they were; most weights zero, some large i32 ones."""
+    rng = np.random.default_rng(m + cfg.bins)
+    values = record_values(rng, cfg, m)
+    if weights == "bool":
+        w = rng.random(m) < 0.3
+    else:
+        w = rng.integers(0, 4, m).astype(np.int32) * (rng.random(m) < 0.3)
+        w[rng.random(m) < 0.01] = 1_000_000
+    counts = rng.integers(0, 1_000, cfg.bins + 1).astype(np.int32)
+    v, wt, c = (torch.from_numpy(np.asarray(a)) for a in (values, w, counts))
+    vc, wc, cc = v.to(cuda), wt.to(cuda), c.to(cuda)
+    before = cuda_build.LAUNCHES["hist_bincount"]
+    got = t_hist.record(cc, vc, wc, cfg)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["hist_bincount"] == before + 1
+    assert torch.equal(cc.cpu(), c) and got.data_ptr() != cc.data_ptr()
+    assert torch.equal(got, t_hist.record_plain(cc, vc, wc, cfg))
+    assert torch.equal(got.cpu(), t_hist.record_plain(c, v, wt, cfg))
+    # the same samples as (R, cap) batches, as observe gives them
+    if m % 512 == 0:
+        assert torch.equal(t_hist.record(cc, vc.view(-1, 512), wc.view(-1, 512), cfg), got)
+
+
+@pytest.mark.cuda
+def test_record_binned_checks_its_arguments(cuda):
+    cfg = t_hist.HistConfig()
+    counts = torch.zeros(cfg.bins + 1, dtype=torch.int32, device=cuda)
+    v = torch.ones(10, device=cuda)
+    w = torch.ones(10, dtype=torch.bool, device=cuda)
+    lo, ratio, bins = t_hist.bin_params(cfg)
+    before = cuda_build.LAUNCHES["hist_bincount"]
+    assert torch.equal(t_hb.record_binned(counts, v[:0], w[:0], lo, ratio, bins), counts)
+    assert cuda_build.LAUNCHES["hist_bincount"] == before
+    with pytest.raises(ValueError, match="counts"):
+        t_hb.record_binned(counts[:-1], v, w, lo, ratio, bins)
+    with pytest.raises(TypeError, match="f32"):
+        t_hb.record_binned(counts, v.double(), w, lo, ratio, bins)
+    with pytest.raises(ValueError, match="lo > 0"):
+        t_hb.record_binned(counts, v, w, 0.0, ratio, bins)
+    with pytest.raises(ValueError, match="cuda"):
+        t_hb.record_binned(counts.cpu(), v.cpu(), w.cpu(), lo, ratio, bins)
 
 
 # ---------------------------------------------------------------------------
