@@ -116,9 +116,13 @@ card against the CPU and the fused ``record`` (binning, bincount and add in
 one launch) against ``record_plain``, bitwise, at every f32 edge of two
 ``HistConfig``s with their neighbours and special values, times ``record``
 at the loop's four shapes beside the plain and the unfused path, keeps the
-idx route's four cases and prints the kernel's registers and spills); the
-digest check (bank table against one payload, bitwise) runs before phase
-2c.
+idx route's four cases and prints the kernel's registers and spills; 1h
+holds the model distance (one launch: distances and, for the screen, the
+scores) against its plain version at its five cases, with each case's
+device kernels a call (profiled right after phase 1), the kernel's
+registers, shared memory and spills, its plan, and views with other row
+strides and start offsets bitwise the contiguous tensor); the digest check
+(bank table against one payload, bitwise) runs before phase 2c.
 
 Prints one JSON line of kernel numbers, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, on
@@ -2208,14 +2212,82 @@ def distance_scale(x):
     return sq[:, None] + sq[None, :] + 2.0 * (x @ x.T).abs()
 
 
-def distance_case(md, name, k, n, gen, zero_row=False, reps=40):
+def device_kernels_a_call(fn, *args, tries=5):
+    """The names of the device operations (kernels, copies, fills) one call
+    of ``fn`` runs, from a profiled call; None where the profiler saw no
+    device work. A spin kernel enqueued after the call marks a trace that
+    holds the call's device events: late in a run the profiler drops every
+    device event of some windows, and such a window is profiled again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn(*args)
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        names = [name for _, _, name in sorted(device_spans(prof))]
+        if any("spin_kernel" in name for name in names):
+            return [name for name in names if "spin_kernel" not in name]
+    return None
+
+
+def distance_views(md, x):
+    """``x``'s distances (and scores, where the tree has them) through views
+    with row strides N + 1, N + 2, N + 3 and views that start 1-3 floats
+    into a buffer, each bitwise those of the contiguous ``x``."""
+    k, n = x.shape
+    fn = getattr(md, "outlier_scores", None) or (lambda t: (md.model_distance(t),))
+    want = fn(x)
+    views = []
+    for extra in (1, 2, 3):
+        wide = torch.zeros((k, n + extra), device=x.device)
+        wide[:, :n] = x
+        views.append((f"row_stride_n_plus_{extra}", wide[:, :n]))
+    for start in (1, 2, 3):
+        flat = torch.zeros(start + k * n, device=x.device)
+        view = flat[start:].view(k, n)
+        view.copy_(x)
+        views.append((f"offset_{start}_floats", view))
+    for what, view in views:
+        got = fn(view)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"distance {k} x {n}: the view {what} differs from the contiguous tensor")
+    return [what for what, _ in views]
+
+
+# phase 1h's shapes: (case, k, N, a row of zeros, calls timed)
+DISTANCE_CASES = (("main_k5", 5, MAIN_P, False, 40), ("main_k16", 16, MAIN_P, False, 40),
+                  ("k1", 1, 4_097, False, 20), ("k7_n33_zero_row", 7, 33, True, 20),
+                  ("k32_ragged", 32, 100_003, True, 20))
+
+
+def distance_device_kernels(md):
+    """The device operations one ``model_distance`` call runs at each of
+    phase 1h's shapes, from a profiled call each. Taken early in a run:
+    after the telemetry phases the profiler drops the device events of
+    some windows."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    out = {}
+    for name, k, n, _, _ in DISTANCE_CASES:
+        x = torch.randn((k, n), generator=gen, device="cuda")
+        out[name] = device_kernels_a_call(md.model_distance, x)
+    return out
+
+
+def distance_case(md, name, k, n, gen, kernels, zero_row=False, reps=40):
     """One shape of the model-distance kernel: within DIST_TOL of the sum of
     the absolute terms of its plain version on the same card tensors, the
-    same bits from call to call, then times: the kernel, the plain version,
-    ``torch.cdist`` (the library yardstick; it gives the root of the
-    distance, computed through a matrix product) and the byte bound.
-    Each timed call reads other models (copies cycled past the 50 MB L2), as
-    a screen of freshly gathered candidates would."""
+    same bits from call to call, d symmetric bit for bit, strided and offset
+    views bitwise the contiguous tensor, the plan where the tree reports it,
+    ``kernels`` (the device operations a call, ``distance_device_kernels``),
+    then times: the kernel, the plain version, ``torch.cdist`` (the library
+    yardstick; it gives the root of the distance, computed through a matrix
+    product) and the byte bound. Each timed call reads other models (copies
+    cycled past the 50 MB L2), as a screen of freshly gathered candidates
+    would."""
     nbytes = 4 * k * n + 4 * k * k          # the models read once, the distances written once
     copies = min(16, max(1, -(-120_000_000 // nbytes)))
     args_list = []
@@ -2232,10 +2304,13 @@ def distance_case(md, name, k, n, gen, zero_row=False, reps=40):
         torch.cuda.synchronize()
         check(got.shape == (k, k) and got.dtype == torch.float32, f"distance {name}: {got.shape}")
         check(torch.equal(got, again), f"distance {name}: two calls differ")
+        check(torch.equal(got, got.T), f"distance {name}: d is not symmetric bit for bit")
         err = (got.double() - want.double()).abs()
         max_abs_err = max(max_abs_err, float(err.max()))
         check(bool((err <= DIST_TOL * distance_scale(x)).all()),
               f"distance {name}: kernel off plain by {float(err.max())}")
+    views = distance_views(md, args_list[0][0])
+    plan = md.plan_info(k, n) if hasattr(md, "plan_info") else None
     rounds = max(1, reps // copies)
     ms = device_ms(md.model_distance, args_list * rounds)
     plain_ms = device_ms(md.model_distance_plain, args_list * rounds)
@@ -2249,20 +2324,22 @@ def distance_case(md, name, k, n, gen, zero_row=False, reps=40):
             "library": "torch.cdist(x, x, compute_mode='use_mm_for_euclid_dist') (the root)",
             "bound_ms": 1e3 * max(bytes_s, flops_s),
             "bound_by": "bytes" if bytes_s >= flops_s else "operations",
-            "bound_bytes": nbytes, "timed_copies": copies}
+            "bound_bytes": nbytes, "timed_copies": copies,
+            "device_kernels_a_call": "not measured (the profiler saw no device work)"
+            if kernels is None else len(kernels),
+            "device_kernel_names": kernels, "views_bitwise": views, "plan": plan}
 
 
-def phase_distance_kernel(md):
+def phase_distance_kernel(md, cuda_build, kernels):
     """Phase 1h: the model-distance kernel against its plain version at the
     screen's shapes (alpha = 5 candidates of the paper's CNN, and 16) and at
-    small odd ones (k = 1, N not a multiple of a chunk, a row of zeros)."""
+    small odd ones (k = 1, N not a multiple of a chunk, a row of zeros),
+    each case with its device kernels a call (``kernels``, profiled early in
+    the run) and the kernel's registers, shared memory and spills."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(19)
-    cases = [distance_case(md, "main_k5", 5, MAIN_P, gen),
-             distance_case(md, "main_k16", 16, MAIN_P, gen),
-             distance_case(md, "k1", 1, 4_097, gen, reps=20),
-             distance_case(md, "k7_n33_zero_row", 7, 33, gen, zero_row=True, reps=20),
-             distance_case(md, "k32_ragged", 32, 100_003, gen, zero_row=True, reps=20)]
+    cases = [distance_case(md, name, k, n, gen, kernels[name], zero_row=zero_row, reps=reps)
+             for name, k, n, zero_row, reps in DISTANCE_CASES]
     with_zero = torch.zeros((3, 1_000), device="cuda")
     check(int(md.model_distance(with_zero).abs().sum()) == 0, "distance of zeros is not 0")
     try:
@@ -2270,6 +2347,14 @@ def phase_distance_kernel(md):
         check(False, "k past MAX_K was not refused")
     except ValueError:
         pass
+    for case in cases:
+        check(case["device_kernel_names"] is None or len(case["device_kernel_names"]) == 1,
+              f"distance {case['case']}: device operations a call: "
+              f"{case['device_kernel_names']}")
+    resources = kernel_resources(cuda_build, "model_distance.cu", ["model_distance_kernel"])
+    for case in cases:
+        case["resources"] = dict(resources["model_distance_kernel"],
+                                 dynamic_smem=(case["plan"] or {}).get("dynamic_smem"))
     return cases
 
 
@@ -2344,7 +2429,8 @@ def phase_fault_main_path(cuda_build):
         bank (ticks) and on events path (c) with int4 (``check_fault_run``);
     (c) bankless, ticks: a crash window, 10 SELECTIVE (p = 0.5), 5 SYBIL;
     (d) ``parameter_outlier_scores`` on alpha = 5 candidates read from the
-        bank of a run with 10 poisoning nodes, card against the CPU."""
+        bank of a run with 10 poisoning nodes, card against the CPU: one
+        launch, one device kernel a call (profiled), its call ms."""
     from repro_torch.core import anomaly
 
     cfgs = fault_runs()
@@ -2436,7 +2522,14 @@ def phase_fault_main_path(cuda_build):
     err = (scores.cpu().double() - cpu.double()).abs()
     check(bool((err <= DIST_TOL * row_scale).all()), f"screen: card off the CPU by {err.max()}")
     check(launches.get("model_distance", 0) == 1, f"screen: launches {launches}")
+    screen_kernels = device_kernels_a_call(anomaly.parameter_outlier_scores, x)
+    check(screen_kernels is None or len(screen_kernels) == 1,
+          f"screen: {len(screen_kernels or [])} device operations: {screen_kernels}")
     out["d_outlier_screen"] = {
+        "device_kernels_a_call": "not measured (the profiler saw no device work)"
+        if screen_kernels is None else len(screen_kernels),
+        "device_kernel_names": screen_kernels,
+        "call_ms": call_ms(anomaly.parameter_outlier_scores, [(x,)] * 20),
         "alpha": len(pick), "params": int(x.shape[1]), "launches": launches,
         "scores_poisoning": scores[:len(bad)].cpu().tolist(),
         "scores_normal": scores[len(bad):].cpu().tolist(),
@@ -3429,6 +3522,7 @@ def main() -> int:
         cases = phase_kernels(fedavg)
         print(json.dumps({"fedavg_cases": cases}))
         print(f"[phase 1] kernel vs plain: {time.perf_counter() - t:.1f} s")
+        distance_kernels = distance_device_kernels(model_distance)   # for phase 1h
 
         main_path = phase_main_path(cuda_build)
         print(json.dumps({"main_path": main_path}))
@@ -3545,7 +3639,7 @@ def main() -> int:
         print(json.dumps({"hist_bincount_cases": hist_cases}))
         print(f"[phase 1f] hist_bincount vs plain: {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
-        distance_cases = phase_distance_kernel(model_distance)
+        distance_cases = phase_distance_kernel(model_distance, cuda_build, distance_kernels)
         print(json.dumps({"model_distance_cases": distance_cases}))
         print(f"[phase 1h] model_distance vs plain: {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Time the event-queue head, the codec's kernels, the merge-winner, the
-chunk-dedup and the histogram kernels of one source tree, and with
-``--runs`` the telemetry and codec paths they serve.
+chunk-dedup, the histogram and the model-distance kernels of one source
+tree, and with ``--runs`` the telemetry and codec paths they serve.
 
-    python3 scripts/torch_kernel_ab.py [--src DIR] [--profile-events] [--runs]
+    python3 scripts/torch_kernel_ab.py [--src DIR] [--only GROUP ...] [--profile-events] [--runs]
 
 On a machine with a CUDA card and nvcc. Loads ``repro_torch`` from ``DIR``
 (default: this checkout's ``src``), builds its ``event_pop.cu``,
@@ -35,6 +35,11 @@ plain version, and prints one JSON line:
   CNN's own leaves (``DeltaCodec.encode_decode`` where the tree has it,
   else ``decode(encode(...))``), bitwise against the plain versions:
   device ms;
+- the model distance (``model_distance``) at ``chip_smoke.py``'s phase 1h
+  cases ``main_k5``, ``main_k16`` and ``k32_ragged`` (within its tolerance
+  of the plain version, views bitwise, the device kernels a call) and the
+  screen's call (``parameter_outlier_scores`` on five candidates of the
+  CNN's width, cycled past L2, against the CPU): device ms and call ms;
 - a launch's floor: the device ms of a one-element in-place add;
 - with ``--profile-events``, ``chip_smoke.py``'s profiled window of the
   events engine's path (c) with int4 (40 iterations): the head, winner and
@@ -70,6 +75,8 @@ import chip_smoke as smoke  # noqa: E402  (timing helpers, queues, payloads)
 
 HOT_REPS = 200
 TOPK_REPS = 40
+GROUPS = ["event_head", "topk_leaves", "gossip_winner", "chunk_dedup", "record",
+          "quant_leaves", "model_distance"]
 
 
 def time_head(ep, name, q, case, gen):
@@ -151,6 +158,40 @@ def time_encode_decode(dc, layout, kind, gen):
     args = [(params[i % len(params)], base) for i in range(TOPK_REPS)]
     return {"case": f"encode_decode_{kind}", "fused": hasattr(codec, "encode_decode"),
             "ms": smoke.device_ms(fn, args), "call_ms": smoke.call_ms(fn, args)}
+
+
+def time_screen(anomaly, gen, k=5):
+    """The screen's call on k candidates of the CNN's width, copies cycled
+    past the 50 MB L2, each within DIST_TOL of the CPU's scores: device ms,
+    call ms and the device operations a call."""
+    n = smoke.MAIN_P
+    args = [(torch.randn((k, n), generator=gen, device="cuda"),) for _ in range(4)]
+    for (x,) in args[:2]:
+        got, want = anomaly.parameter_outlier_scores(x).cpu(), anomaly.parameter_outlier_scores(
+            x.cpu())
+        scale = smoke.distance_scale(x.cpu())
+        row_scale = (scale.sum(1) - scale.diagonal()) / max(k - 1, 1)
+        err = (got.double() - want.double()).abs()
+        smoke.check(bool((err <= smoke.DIST_TOL * row_scale).all()),
+                    f"screen: card off the CPU by {float(err.max())}")
+    kernels = smoke.device_kernels_a_call(anomaly.parameter_outlier_scores, args[0][0])
+    return {"case": "screen_k5", "k": k, "N": n,
+            "ms": smoke.device_ms(anomaly.parameter_outlier_scores, args * 10),
+            "call_ms": smoke.call_ms(anomaly.parameter_outlier_scores, args * 10),
+            "device_kernels_a_call": None if kernels is None else len(kernels),
+            "device_kernel_names": kernels}
+
+
+def time_distance(md, anomaly, gen):
+    """``chip_smoke.py``'s phase 1h cases main_k5, main_k16 and k32_ragged,
+    and the screen's call."""
+    kernels = smoke.distance_device_kernels(md)
+    cases = [smoke.distance_case(md, name, k, n, gen, kernels[name], zero_row=zero_row, reps=reps)
+             for name, k, n, zero_row, reps in smoke.DISTANCE_CASES
+             if name in ("main_k5", "main_k16", "k32_ragged")]
+    keep = ("case", "ms", "plain_ms", "call_ms", "library_ms", "bound_ms", "max_abs_err",
+            "device_kernels_a_call", "plan")
+    return [{key: c[key] for key in keep} for c in cases] + [time_screen(anomaly, gen)]
 
 
 def codec_qmax(kind):
@@ -254,6 +295,8 @@ def path_runs(cuda_build):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"), help="the tree holding repro_torch")
+    ap.add_argument("--only", nargs="+", choices=GROUPS, default=GROUPS,
+                    help="time only these kernel groups")
     ap.add_argument("--profile-events", action="store_true",
                     help="also profile the events engine's path (c) with int4")
     ap.add_argument("--runs", action="store_true",
@@ -264,6 +307,7 @@ def main() -> int:
         print("torch_kernel_ab: needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, src)
+    from repro_torch.core import anomaly
     from repro_torch.core.aggregation import leaf_shapes
     from repro_torch.fl.tasks import CNNTask
     from repro_torch.kernels import chunk_transfer as ck
@@ -272,38 +316,45 @@ def main() -> int:
     from repro_torch.kernels import event_pop as ep
     from repro_torch.kernels import gossip_merge as gm
     from repro_torch.kernels import hist_bincount as hb
+    from repro_torch.kernels import model_distance as md
     from repro_torch.obs import hist as hist_lib
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
     main_layout = dc.leaf_layout(leaf_shapes(CNNTask().init(0, "cpu")))
+    scale = dc.dense_layout(4 * smoke.MAIN_CODEC_BLOCKS, dc.BLOCK)
+    groups = {      # each group's keys of the JSON line
+        "event_head": lambda: {"event_head": [
+            time_head(ep, "deliver", smoke.MAIN_EDGES, "deliver", gen),
+            time_head(ep, "bank", 2 * smoke.MAIN_EDGES, "bank", gen)]},
+        "topk_leaves": lambda: {"topk_leaves": [time_topk(dc, main_layout, k, gen)
+                                                for k in (1, 8, 33, 128)]},
+        "gossip_winner": lambda: {"gossip_winner": smoke.phase_gossip_kernel(gm, cuda_build)},
+        "chunk_dedup": lambda: {"chunk_dedup": smoke.phase_dedup_kernel(ck, cuda_build)},
+        "record": lambda: {
+            "record": [time_record(hist_lib, hb, case, gen)
+                       for case in ("merge", "commit", "chunk", "uniform")],
+            "hist_bincount": [{k: c[k] for k in ("case", "ms", "plain_ms", "call_ms")}
+                              for c in (smoke.hist_case(hb, case, case, gen)
+                                        for case in ("merge", "commit", "chunk", "uniform"))]},
+        "quant_leaves": lambda: {
+            "quant_leaves": [time_quant(dc, main_layout, 127, gen, "main_int8"),
+                             time_quant(dc, main_layout, 7, gen, "main_int4"),
+                             time_quant(dc, scale, 127, gen, "scale_4x_int8")],
+            "encode_decode": [time_encode_decode(dc, main_layout, kind, gen)
+                              for kind in ("int8", "int4")]},
+        "model_distance": lambda: {"model_distance": time_distance(md, anomaly, gen)},
+    }
+    out = {"src": src, "card": smoke.nvidia_smi_line()}
     try:
-        heads = [time_head(ep, "deliver", smoke.MAIN_EDGES, "deliver", gen),
-                 time_head(ep, "bank", 2 * smoke.MAIN_EDGES, "bank", gen)]
-        topk = [time_topk(dc, main_layout, k, gen) for k in (1, 8, 33, 128)]
-        winner = smoke.phase_gossip_kernel(gm, cuda_build)
-        dedup = smoke.phase_dedup_kernel(ck, cuda_build)
-        records = [time_record(hist_lib, hb, case, gen)
-                   for case in ("merge", "commit", "chunk", "uniform")]
-        idx_route = [smoke.hist_case(hb, case, case, gen)
-                     for case in ("merge", "commit", "chunk", "uniform")]
-        scale = dc.dense_layout(4 * smoke.MAIN_CODEC_BLOCKS, dc.BLOCK)
-        quant = [time_quant(dc, main_layout, 127, gen, "main_int8"),
-                 time_quant(dc, main_layout, 7, gen, "main_int4"),
-                 time_quant(dc, scale, 127, gen, "scale_4x_int8")]
-        encode_decode = [time_encode_decode(dc, main_layout, kind, gen)
-                         for kind in ("int8", "int4")]
+        for name in GROUPS:
+            if name in opts.only:
+                out.update(groups[name]())
     except smoke.SmokeFailure as e:
         print(f"torch_kernel_ab: FAILED: {e}", file=sys.stderr)
         return 1
     one = torch.zeros(1, device="cuda")
-    floor_ms = smoke.device_ms(lambda t: t.add_(1.0), [(one,)] * HOT_REPS)
-    out = {"src": src, "card": smoke.nvidia_smi_line(), "event_head": heads,
-           "topk_leaves": topk, "gossip_winner": winner, "chunk_dedup": dedup,
-           "record": records, "hist_bincount": [
-               {k: c[k] for k in ("case", "ms", "plain_ms", "call_ms")} for c in idx_route],
-           "quant_leaves": quant, "encode_decode": encode_decode,
-           "launch_floor_ms": floor_ms}
+    out["launch_floor_ms"] = smoke.device_ms(lambda t: t.add_(1.0), [(one,)] * HOT_REPS)
     if opts.profile_events:
         prof = smoke.phase_profile(
             "run_dagfl_gossip", label="events (c) int4", engine="events",

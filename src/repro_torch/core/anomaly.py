@@ -76,12 +76,8 @@ def parameter_outlier_scores(flat_models: torch.Tensor) -> torch.Tensor:
     """§VI.A-style model-space screening of candidate tips.
 
     flat_models (k, N) -> (k,) mean squared-L2 distance to the other
-    candidates (``model_distance``: the kernel on a card); poisoned models
-    sit far from the normal cluster.
+    candidates (``outlier_scores``: on a card one launch that writes the
+    distances and the scores); poisoned models sit far from the normal
+    cluster.
     """
-    d = md_kernel.model_distance(flat_models)                 # (k, k)
-    k = d.shape[0]
-    off = torch.where(torch.eye(k, dtype=torch.bool, device=d.device), 0.0, d)
-    total = off.sum(dim=1)
-    # a tensor divisor: a Python scalar would be a reciprocal multiply
-    return total / torch.full_like(total, max(k - 1, 1))
+    return md_kernel.outlier_scores(flat_models)[1]
