@@ -60,7 +60,18 @@ builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (into
    ``SlotServer`` (4 slots, 8 requests of 512 prompt tokens, 32 new each);
    every prefill or forward launches the chunked WKV kernel once a layer,
    every decode step the sequential one, and neither the other; the
-   profiled window's device ms and operations a decode step;
+   profiled window's device ms and operations a decode step; and (2k) the
+   paper's experiments at full width, run right after the main path: (a)
+   ``run_dagfl`` with the paper's char LSTM (``LSTMTask()``, 820,522
+   parameters) on the 100-node char population with ``LSTM_TASK.dagfl``,
+   cut in depth to ``LSTM_ITERATIONS`` (ledger, parameters and bank on the
+   card, ``fedavg_gather`` once a prepare and once a check with a tip),
+   twice, bitwise the same run, and a profiled SGD step and validation;
+   (b) ``run_google``, ``run_async`` and ``run_block`` on ``CNNTask()`` at
+   ``ITERATIONS`` and on ``LSTMTask()`` at ``LSTM_ITERATIONS`` (no hand
+   kernel launched: their averages are plain PyTorch); Table II's two
+   numbers per system and task, as ``iteration_delay_experiment`` computes
+   them;
 3. runs a small ``run_dagfl``, a small ``run_dagfl_gossip`` (a lossy ring
    with a partition), a small banked one (the same ring, starved) and the
    same with the int8 codec on the card and on the CPU with the same draws
@@ -79,9 +90,15 @@ builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (into
    (f32): forward and prefill of 96 tokens (the chunked WKV kernel) and 4
    decode steps (the sequential one) within 1e-4, the ``SlotServer``'s
    tokens and ticks equal with prompts of 32 and of 9 tokens (the latter
-   prefilled by the sequential kernel), both launch counts checked.
+   prefilled by the sequential kernel), both launch counts checked; (3k) the
+   bench LSTM through ``run_dagfl`` and the three baselines on the bench CNN
+   and the bench LSTM (a lazy population): latencies, times, accuracies,
+   Block FL's ``dropped`` and the ledger's integer columns equal,
+   parameters within 1e-4.
 
-Phase 1 of the merge-winner, chunk-dedup, codec, event-queue, histogram,
+Phase 1 holds the Eq.-(1) kernel at the paper's CNN (k = 2, 8, a NO_TX
+slot, ragged, bf16) and at the paper's LSTM (``main_lstm_k2``: k = 2 rows of
+820,522). Phase 1 of the merge-winner, chunk-dedup, codec, event-queue, histogram,
 model-distance, attention and WKV kernels runs last, after phase 3 (1b
 times the winner at density 0.5, the full overlay (every edge live, a ticks
 round) and an events batch of path (d) (1-4 live edges of
@@ -132,6 +149,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import dataclasses
 import json
 import subprocess
@@ -153,6 +171,7 @@ PEAK_TF32_FLOPS = 495e12     # dense TF32 on the tensor cores
 PEAK_F64_FLOPS = 34e12       # f64 outside the tensor cores
 
 MAIN_P = 1_663_370          # CNNTask() parameters: the paper's full-width CNN
+LSTM_P = 820_522            # LSTMTask() parameters: the paper's full-width char LSTM
 MAIN_SLOTS = 512            # DagFLConfig.capacity
 MAIN_NODES = 100            # DagFLConfig.num_nodes: the gossip path's replicas
 MAIN_CHUNKS = 4             # BankGossipConfig.chunks_per_slot
@@ -189,6 +208,17 @@ HIST_BINS = 65              # HistConfig(): 64 log-spaced bins and the overflow 
 # (obs/hist.py::bin_index with xla_log_f32: 12 f64 products and 12 f64 sums,
 # two divisions and about 13 other f32 operations) and the add
 HIST_F64_OPS_PER_SAMPLE, HIST_F32_OPS_PER_SAMPLE = 24, 16
+# phase 2k's depth on the paper's LSTM: an iteration is beta = 5 epochs of 4
+# minibatches of 100 lines, each SGD step about 5,500 eager launches (the
+# 80-step recurrence of two layers, forward and backward), about 2.7 s on one
+# H100, so the depth is cut from the paper's 5,000-10,000 to keep 2k near a
+# minute (the whole script took 1,024 s of its 1,200 with a depth of 10 and
+# 1,065 s with 6, on slow hosts)
+LSTM_ITERATIONS = 4
+LSTM_EVAL_EVERY = 2
+# phase 3k: the bench tasks, card against CPU (Google FL's cohort of 10 needs
+# more than 10 nodes to draw from)
+SMALL_DAGFL_NODES, SMALL_BASELINE_NODES = 8, 12
 OBS_ITERATIONS = 100        # phase 2g's depth: each path runs twice (telemetry off, on)
 FAULT_ITERATIONS = 100      # phase 2h's depth: each faulted path beside its unfaulted run
 # the served model (2i): qwen3-0.6b's prefill length, the decode batch (the
@@ -369,6 +399,11 @@ def phase_kernels(fedavg):
     rows.normal_(generator=gen)
     cases.append(fedavg_case(fedavg, "main_k2_bf16", rows, 2, 0, gen))
     del rows
+    # the paper's LSTM (phase 2k): k = 2 rows of 820,522 at the 16-byte stride
+    rows = fedavg.alloc_rows(MAIN_SLOTS, LSTM_P, torch.float32, dev)
+    rows.normal_(generator=gen)
+    cases.append(fedavg_case(fedavg, "main_lstm_k2", rows, 2, 0, gen))
+    del rows
     # the reference kernel's own (weights, models) signature: slot = arange(k)
     models = torch.randn((3, 1_000_003), generator=gen, device=dev)
     w = torch.tensor([0.2, 0.3, 0.5], device=dev)
@@ -545,6 +580,7 @@ def phase_main_path(cuda_build):
         "stage_ms": res.extras["stage_ms"], "checks": res.extras["checks"],
         "checks_with_tip": res.extras["checks_with_tip"], "launches": launches,
         "accs": [float(a) for a in res.accs], "avg_latency_s": res.avg_latency,
+        "wallclock_s": float(res.times[-1]),
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
     }
 
@@ -959,6 +995,236 @@ def phase_small_agreement():
     diff = max(float((g.final_params[n].cpu() - c.final_params[n]).abs().max()) for n in c.final_params)
     check(diff <= 1e-4, f"final params differ by {diff}")
     return {"final_params_max_abs_diff": diff, "accs": [float(a) for a in g.accs]}
+
+
+@contextlib.contextmanager
+def bank_devices():
+    """The device types of the model bank at every ``bank_write`` of a run
+    (genesis and each commit) while the block runs."""
+    from repro_torch.core import bank as bank_lib
+
+    orig, seen = bank_lib.bank_write, set()
+
+    def spy(bank, slot, params):
+        seen.add(bank.rows.device.type)
+        return orig(bank, slot, params)
+
+    bank_lib.bank_write = spy
+    try:
+        yield seen
+    finally:
+        bank_lib.bank_write = orig
+
+
+def timed_system(cuda_build, system, task, nodes, gval, dcfg, sim):
+    """One run of ``SYSTEMS[system]`` on the card from a copy of ``nodes``
+    (whose rng streams a run consumes): the result, its wall s, the kernel
+    launches and the peak memory."""
+    from repro_torch.fl.systems import SYSTEMS
+
+    nodes = copy.deepcopy(nodes)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.LAUNCHES.clear()
+    t = time.perf_counter()
+    res = SYSTEMS[system](task, nodes, dcfg, sim, gval, device="cuda")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t
+    return res, wall_s, dict(cuda_build.LAUNCHES), torch.cuda.max_memory_allocated()
+
+
+def check_model(what, res, params_expected):
+    params = res.final_params
+    check(all(p.is_cuda for p in params.values()), f"{what}: final params are not on the card")
+    check(sum(p.numel() for p in params.values()) == params_expected,
+          f"{what}: {sum(p.numel() for p in params.values())} parameters, not {params_expected}")
+    check(all(bool(torch.isfinite(p).all()) for p in params.values()),
+          f"{what}: non-finite params")
+    check(len(res.accs) > 0 and bool(np.isfinite(res.accs).all()),
+          f"{what}: accuracies {res.accs}")
+
+
+def system_summary(res, wall_s, iterations, peak):
+    out = {"iterations": iterations, "run_s": wall_s, "ms_per_iteration": 1e3 * wall_s / iterations,
+           "avg_latency_s": res.avg_latency, "wallclock_s": float(res.times[-1]),
+           "last_acc": float(res.accs[-1]), "accs": [float(a) for a in res.accs],
+           "peak_memory_bytes": peak}
+    if "stage_ms" in res.extras:
+        out["stage_ms"] = res.extras["stage_ms"]
+    if "dropped" in res.extras:
+        out["dropped"] = res.extras["dropped"]
+    return out
+
+
+def lstm_step_profile(task, nodes, dcfg, sim):
+    """One SGD step and one validation of the paper's LSTM under
+    ``torch.profiler``: device operations, device ms and wall ms each."""
+    from repro_torch.fl.systems import _tb
+    from torch.profiler import ProfilerActivity, profile
+
+    params = task.init(0, "cuda")
+    node = copy.deepcopy(nodes[0])
+    train = _tb(node.minibatch(sim.minibatch), "cuda")
+    val = _tb(node.val_batch(sim.val_size), "cuda")
+    out = {}
+    for name, fn in (("sgd_step", lambda: task.train_fn(params, train)),
+                     ("validation", lambda: task.eval_fn(params, val))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t)
+        out[name] = trace_summary(prof, wall_ms)
+    step, val = out["sgd_step"].get("device_ops"), out["validation"].get("device_ops")
+    if step is not None and val is not None:
+        # beta epochs of steps_per_iter minibatches, alpha candidates and the
+        # new model validated: the launches of one prepare, less its few others
+        out["device_ops_per_prepare"] = dcfg.beta * sim.steps_per_iter * step + (dcfg.alpha + 1) * val
+    return out
+
+
+def phase_paper_experiments(cuda_build, main_path):
+    """Phase 2k: the paper's experiments at full width. (a) ``run_dagfl``
+    with the paper's LSTM (820,522 parameters) on the 100-node char
+    population, through ``fedavg_gather``, twice, bitwise the same; (b) the
+    three baselines on the paper's CNN at ``ITERATIONS`` and on the LSTM at
+    ``LSTM_ITERATIONS``; Table II's two numbers per system and task, as
+    ``iteration_delay_experiment`` computes them."""
+    from repro_torch.configs.dagfl_paper_tasks import CNN_TASK, LSTM_TASK
+    from repro_torch.fl.experiments import make_lstm_setup
+    from repro_torch.fl.systems import SimConfig
+    from repro_torch.fl.tasks import CNNTask, LSTMTask
+
+    dcfg, task = LSTM_TASK.dagfl, LSTMTask()     # 100 nodes, capacity 512, alpha 5, k 2, beta 5
+    t = time.perf_counter()
+    _, nodes, gval, _ = make_lstm_setup(num_nodes=dcfg.num_nodes)
+    out = {"population_setup_s": time.perf_counter() - t}
+    sim = SimConfig(iterations=LSTM_ITERATIONS, eval_every=LSTM_EVAL_EVERY,
+                    minibatch=dcfg.minibatch)
+    runs = []
+    for _ in range(2):
+        with bank_devices() as banks:
+            res, wall_s, launches, peak = timed_system(cuda_build, "dagfl", task, nodes, gval,
+                                                       dcfg, sim)
+        dag = res.extras["dag"]
+        check(dag.publisher.is_cuda and dag.approvers.is_cuda, "2k (a): ledger is not on the card")
+        check(banks == {"cuda"}, f"2k (a): the bank was written on {banks}")
+        check_model("2k (a)", res, LSTM_P)
+        check(int(dag.count) == LSTM_ITERATIONS + 1,
+              f"2k (a): ledger count {int(dag.count)} != {LSTM_ITERATIONS + 1}")
+        expected = LSTM_ITERATIONS + res.extras["checks_with_tip"]
+        check(launches.get("fedavg_gather", 0) == expected,
+              f"2k (a): fedavg_gather launched {launches.get('fedavg_gather', 0)} times, "
+              f"expected {expected} (prepares + controller checks with a tip)")
+        runs.append((res, wall_s, launches, peak))
+    (a, wall_s, launches, peak), (b, wall_b, _, _) = runs
+    check(a.avg_latency == b.avg_latency, "2k (a): the repeat's latency differs")
+    for name in ("iters", "times", "accs"):
+        check(np.array_equal(getattr(a, name), getattr(b, name)), f"2k (a): the repeat's {name} differ")
+    for name in LEDGER_COLUMNS + ("accuracy", "auth_tag"):
+        check(same_bits(getattr(a.extras["dag"], name).cpu(), getattr(b.extras["dag"], name).cpu()),
+              f"2k (a): the repeat's ledger {name} differs")
+    for k in a.final_params:
+        check(same_bits(a.final_params[k].cpu(), b.final_params[k].cpu()),
+              f"2k (a): the repeat's final params {k} differ")
+    out["lstm_dagfl"] = {**system_summary(a, wall_s, LSTM_ITERATIONS, peak),
+                         "nodes": dcfg.num_nodes, "capacity": dcfg.capacity, "params": LSTM_P,
+                         "checks": a.extras["checks"], "checks_with_tip": a.extras["checks_with_tip"],
+                         "launches": launches, "repeat_run_s": wall_b, "repeat_bitwise": True}
+    del runs, b
+    out["lstm_profile"] = lstm_step_profile(task, nodes, dcfg, sim)
+
+    cnn_dcfg = CNN_TASK.dagfl
+    cnn_nodes, cnn_gval = paper_setup(cnn_dcfg.num_nodes, CNNTask().image_size)
+    table2 = {"cnn": {"iterations": ITERATIONS,
+                      "dagfl_avg_iter_latency_s": main_path["avg_latency_s"],
+                      "dagfl_wallclock_s": main_path["wallclock_s"]},
+              "lstm": {"iterations": LSTM_ITERATIONS,
+                       "dagfl_avg_iter_latency_s": a.avg_latency,
+                       "dagfl_wallclock_s": float(a.times[-1])}}
+    for label, btask, bnodes, bgval, bdcfg, iterations, eval_every, params in (
+            ("cnn", CNNTask(), cnn_nodes, cnn_gval, cnn_dcfg, ITERATIONS, EVAL_EVERY, MAIN_P),
+            ("lstm", task, nodes, gval, dcfg, LSTM_ITERATIONS, LSTM_EVAL_EVERY, LSTM_P)):
+        bsim = SimConfig(iterations=iterations, eval_every=eval_every, minibatch=bdcfg.minibatch)
+        for system in ("google", "async", "block"):
+            res, wall_s, launches, peak = timed_system(cuda_build, system, btask, bnodes, bgval,
+                                                       bdcfg, bsim)
+            what = f"2k (b) {system} on the {label}"
+            check_model(what, res, params)
+            # the baselines average and mix in plain PyTorch, as the reference does
+            check(not launches, f"{what}: launched hand kernels {launches}")
+            out[f"{label}_{system}"] = system_summary(res, wall_s, iterations, peak)
+            table2[label][f"{system}_avg_iter_latency_s"] = res.avg_latency
+            table2[label][f"{system}_wallclock_s"] = float(res.times[-1])
+    out["table2"] = table2
+    return out
+
+
+@contextlib.contextmanager
+def one_cpu_thread(on=True):
+    """One intra-op CPU thread while the block runs: the LSTM's CPU run is
+    thousands of small matmuls, and a full thread pool synchronising on
+    each took 25.5 s of 3k in one run and 117.7 s in another."""
+    before = torch.get_num_threads()
+    if on:
+        torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
+def phase_small_paper_agreement():
+    """Phase 3k: the bench LSTM through ``run_dagfl`` and the three baselines
+    on the bench CNN and the bench LSTM, on the card and on the CPU with the
+    same draws: latencies, times, ledger integer columns and accuracies
+    equal, parameters within 1e-4."""
+    from repro_torch.fl.experiments import default_dagfl_config, make_cnn_setup, make_lstm_setup
+    from repro_torch.fl.systems import SYSTEMS, SimConfig
+
+    out = {}
+    cases = [("dagfl", "lstm", SMALL_DAGFL_NODES,
+              SimConfig(iterations=4, eval_every=2, steps_per_iter=1, seed=0))]
+    for task_name in ("cnn", "lstm"):
+        # the LSTM: 11 iterations are still two of Google FL's rounds
+        kw = dict(iterations=11, steps_per_iter=1, minibatch=16) if task_name == "lstm" \
+            else dict(iterations=20)
+        cases += [(system, task_name, SMALL_BASELINE_NODES,
+                   SimConfig(eval_every=5, seed=0, **kw))
+                  for system in ("google", "async", "block")]
+    for system, task_name, n, sim in cases:
+        setup = make_cnn_setup if task_name == "cnn" else make_lstm_setup
+        dcfg = default_dagfl_config(n, task_name)
+        res = {}
+        for device in ("cuda", "cpu"):
+            task, nodes, gval, _ = setup(num_nodes=n, abnormal="lazy", num_abnormal=2, seed=0)
+            kw = {}
+            if system == "dagfl":
+                kw["draw"] = small_draws(device, n, dcfg.capacity)[0]
+            with one_cpu_thread(device == "cpu"):
+                res[device] = SYSTEMS[system](task, nodes, dcfg, sim, gval, device=device, **kw)
+        g, c = res["cuda"], res["cpu"]
+        what = f"3k {system} on the bench {task_name}"
+        check(g.avg_latency == c.avg_latency, f"{what}: avg latency differs")
+        check(np.array_equal(g.iters, c.iters) and np.array_equal(g.times, c.times),
+              f"{what}: curve times differ")
+        check(np.array_equal(g.accs, c.accs), f"{what}: accuracies differ: {g.accs} vs {c.accs}")
+        check(g.extras.get("dropped") == c.extras.get("dropped"), f"{what}: dropped differs")
+        if system == "dagfl":
+            dg, dc = g.extras["dag"], c.extras["dag"]
+            for name in ("publisher", "approvals", "approval_count", "model_slot", "count",
+                         "published_per_node", "contributing_m0", "contributing_m1"):
+                check(torch.equal(getattr(dg, name).cpu(), getattr(dc, name)),
+                      f"{what}: ledger {name} differs")
+        diff = max(float((g.final_params[k].cpu() - c.final_params[k]).abs().max())
+                   for k in c.final_params)
+        check(diff <= 1e-4, f"{what}: final params differ by {diff}")
+        out[f"{system}_{task_name}"] = {"final_params_max_abs_diff": diff,
+                                        "accs": [float(a) for a in g.accs],
+                                        "dropped": g.extras.get("dropped")}
+    return out
 
 
 def small_draws(device, n, cap):
@@ -3527,6 +3793,11 @@ def main() -> int:
         main_path = phase_main_path(cuda_build)
         print(json.dumps({"main_path": main_path}))
         print(json.dumps({"profile": phase_profile()}))
+        # the paper's experiments run here, before the telemetry phases, after
+        # which the profiler loses device events (2k profiles an LSTM step)
+        t = time.perf_counter()
+        print(json.dumps({"paper_experiments": phase_paper_experiments(cuda_build, main_path)}))
+        print(f"[phase 2k] the paper's LSTM and the baselines: {time.perf_counter() - t:.1f} s")
         gossip_path, bankless = phase_gossip_main_path(cuda_build)
         print(json.dumps({"gossip_main_path": gossip_path}))
         print(json.dumps({"profile_gossip": phase_profile("run_dagfl_gossip")}))
@@ -3609,6 +3880,10 @@ def main() -> int:
         t = time.perf_counter()
         print(json.dumps({"small_rwkv_agreement": phase_small_rwkv_agreement()}))
         print(f"[phase 3j] the RWKV model, card against CPU: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        print(json.dumps({"small_paper_agreement": phase_small_paper_agreement()}))
+        print(f"[phase 3k] the LSTM and the baselines, card against CPU: "
+              f"{time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
         gossip_phase = phase_gossip_kernel(
             gossip_merge, cuda_build, events_paths["d_k_regular_jitter"]["live_edges_per_batch"])

@@ -3,8 +3,8 @@
 * CNN task  — 2x(5x5 conv + 2x2 maxpool) + FC-512 + softmax on 28x28x1 images
   (McMahan et al. CNN on MNIST), driven with the synthetic MNIST-like dataset.
 * LSTM task — 2-layer 256-unit char-level LSTM over 80-char lines, 8-dim
-  embedding (McMahan et al. Shakespeare model). The port's ``LSTMTask``
-  comes in a later slice; the config is here so both rows of Table I are.
+  embedding (McMahan et al. Shakespeare model), driven with the synthetic
+  char corpus (``repro_torch.fl.tasks.LSTMTask``).
 """
 from dataclasses import dataclass, field
 from typing import Tuple

@@ -1,9 +1,13 @@
-"""Offline synthetic image data with the paper's shapes and non-IID structure.
+"""Offline synthetic datasets with the paper's shapes and non-IID structure.
 
-The port's numpy copy of the image half of ``repro.data.synthetic``: the same
-seeds give the same arrays. ``mnist_like`` stands in for MNIST: 10-class
-28x28x1 images made of smooth class prototypes + per-sample noise + random
-shifts. The char corpus comes with the LSTM task.
+The port's numpy copy of ``repro.data.synthetic``: the same seeds give the
+same arrays.
+
+* ``mnist_like``  — stands in for MNIST: 10-class 28x28x1 images made of
+  smooth class prototypes + per-sample noise + random shifts.
+* ``char_corpus`` — stands in for Shakespeare: a character stream from
+  per-role Markov chains over a 90-char alphabet; 80-char lines, highly
+  unbalanced roles (the paper's non-IID source for the LSTM task).
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ from typing import List
 import numpy as np
 
 NUM_CLASSES = 10
+VOCAB = 90  # printable chars
 
 
 def _prototypes(rng: np.random.Generator, image_size: int) -> np.ndarray:
@@ -98,3 +103,42 @@ def paper_partition(
         labels = np.concatenate(labels)
         nodes.append(gen.sample(rng, labels))
     return nodes
+
+
+class CharCorpus:
+    """Role-conditioned Markov text: each role has its own transition matrix
+    biased toward a role-specific subset of the alphabet (non-IID source)."""
+
+    def __init__(self, num_roles: int = 30, seed: int = 0, order_bias: float = 6.0):
+        rng = np.random.default_rng(seed)
+        base = rng.dirichlet(np.ones(VOCAB) * 0.3, size=VOCAB).astype(np.float64)
+        self.mats = []
+        for r in range(num_roles):
+            fav = rng.choice(VOCAB, size=12, replace=False)
+            m = base.copy()
+            m[:, fav] *= order_bias
+            m /= m.sum(axis=1, keepdims=True)
+            self.mats.append(m.astype(np.float64))
+        self.num_roles = num_roles
+
+    def lines(self, rng: np.random.Generator, role: int, n_lines: int, line_len: int = 80):
+        m = self.mats[role % self.num_roles]
+        out = np.empty((n_lines, line_len), np.int32)
+        for i in range(n_lines):
+            c = rng.integers(0, VOCAB)
+            for t in range(line_len):
+                out[i, t] = c
+                c = rng.choice(VOCAB, p=m[c])
+        return out
+
+
+def char_partition(
+    corpus: CharCorpus, num_nodes: int, lines_per_node: int, seed: int = 2
+) -> List[np.ndarray]:
+    """Random role per node (paper: roles randomly assigned to 100 nodes)."""
+    rng = np.random.default_rng(seed)
+    roles = rng.integers(0, corpus.num_roles, num_nodes)
+    return [
+        corpus.lines(np.random.default_rng(seed + 100 + i), int(roles[i]), lines_per_node)
+        for i in range(num_nodes)
+    ]

@@ -1,15 +1,18 @@
 """Node population for the simulator: local data + behavior (host numpy).
 
-The port's copy of the CNN half of ``repro.fl.nodes``: the same seeds give
-the same population arrays and the same per-node rng streams.
+The port's copy of ``repro.fl.nodes``: the same seeds give the same
+population arrays and the same per-node rng streams.
 
 Behaviors (Section V.A.1):
   normal    — trains honestly.
   lazy      — skips training, republishes an existing model (reward farming).
-  poisoning — local labels randomized (wrong data).
-  backdoor  — 5x5-ish white square trigger, label shifted +1; backdoor nodes
-              also run the JOINT attack — they bias tip selection toward
-              other backdoor nodes' transactions (§V.A.4).
+  poisoning — local labels/tokens randomized (wrong data).
+  backdoor  — CNN only: 5x5-ish white square trigger, label shifted +1;
+              backdoor nodes also run the JOINT attack — they bias tip
+              selection toward other backdoor nodes' transactions (§V.A.4).
+
+Nodes are task-agnostic: local data is a dict of row-aligned arrays
+({"x","y"} for CNN, {"tokens"} for the LSTM task).
 """
 from __future__ import annotations
 
@@ -19,9 +22,12 @@ from typing import Dict, List
 import numpy as np
 
 from repro_torch.data.synthetic import (
+    CharCorpus,
     MnistLike,
     NUM_CLASSES,
+    VOCAB,
     add_backdoor_trigger,
+    char_partition,
     paper_partition,
 )
 
@@ -105,3 +111,46 @@ def build_population(
             )
         )
     return nodes
+
+
+def build_char_population(
+    corpus: CharCorpus,
+    num_nodes: int,
+    abnormal: str = "normal",
+    num_abnormal: int = 0,
+    lines_per_node: int = 64,
+    test_frac: float = 0.25,
+    seed: int = 0,
+) -> List[SimNode]:
+    """LSTM task: role-partitioned lines (backdoor not applicable — §V.A.1)."""
+    assert abnormal != "backdoor", "paper runs backdoor nodes only on the CNN task"
+    data = char_partition(corpus, num_nodes, lines_per_node, seed=seed)
+    rng = np.random.default_rng(seed + 7)
+    behaviors = _assign_behaviors(num_nodes, abnormal, num_abnormal, rng)
+
+    nodes = []
+    for i in range(num_nodes):
+        lines = data[i]
+        n_test = max(4, int(len(lines) * test_frac))
+        perm = rng.permutation(len(lines))
+        te, tr = perm[:n_test], perm[n_test:]
+        tr_lines = lines[tr].copy()
+        if behaviors[i] == "poisoning":
+            tr_lines = rng.integers(0, VOCAB, tr_lines.shape).astype(tr_lines.dtype)
+        nodes.append(
+            SimNode(
+                node_id=i,
+                behavior=behaviors[i],
+                train={"tokens": tr_lines},
+                test={"tokens": lines[te]},
+                rng=np.random.default_rng(seed * 1000 + i),
+            )
+        )
+    return nodes
+
+
+def backdoor_eval_set(gen: MnistLike, rng: np.random.Generator, n: int = 256):
+    """Triggered clean images; attack succeeds if prediction = y+1 (§V.A.3)."""
+    ds = gen.balanced(rng, n)
+    sq = max(3, ds.x.shape[1] // 6)
+    return {"x": add_backdoor_trigger(ds.x, square=sq), "y": ds.y}

@@ -1,11 +1,24 @@
-"""DAG-FL as the paper simulates it (Section V), on one device.
+"""The FL systems of Section V, sharing one task/population/latency model,
+on one device.
 
 ``run_dagfl`` drives Algorithm 2 over one instantly consistent ledger:
 iteration starts are Poisson arrivals ("one node on average ready per
 second"); an iteration is prepared (stages 1-3) at its start t0 and
 committed (stage 4) at t1 = t0 + h, with h from the Table-I
 ``LatencyModel``. The controller (Algorithm 1) checks every ``eval_every``
-commits. The baseline systems come in a later slice.
+commits.
+
+The baselines share the task, the population and the latency model:
+
+* Google FL       — synchronous rounds of 10, FederatedAveraging [1]; the
+                    cohort's transfers serialize over the shared 100 Mbps
+                    medium, which makes its rounds the slowest (Table II).
+* Asynchronous FL — the server mixes each upload into the global model [7].
+* Block FL        — 5 miner groups, candidate blocks (5 tx or 10 s), PoW [3].
+
+Their model averages divide by a tensor filled on the device, an IEEE
+division on the CPU and on a card alike (a Python scalar divisor is a
+reciprocal multiply on a card).
 
 Draws. The reference draws each iteration's tip-selection uniforms from
 ``split(PRNGKey(seed * 100003 + i))[0]`` and each controller check's from
@@ -67,6 +80,10 @@ class SimConfig:
     steps_per_iter: int = 4       # minibatches per 'iteration' (one local epoch)
     val_size: int = 64            # node-local validation batch (fixed shape)
     seed: int = 0
+    async_mix: float = 0.5        # [7]-style server mixing coefficient
+    block_margin: float = 0.2     # miner drops tx if acc < global_acc - margin
+                                  # (loose: catches poisoned models, not the
+                                  #  normal non-IID accuracy dip)
     backdoor_joint_bias: float = 3.0
 
 
@@ -594,3 +611,174 @@ def run_dagfl_gossip(
                                                obs=obs, faults=faults, fault_draw=fault_draw),
         device, draw,
     )
+
+
+# ---------------------------------------------------------------------------
+# Google FL (synchronous rounds)
+# ---------------------------------------------------------------------------
+
+
+def _average(models: List[Dict[str, torch.Tensor]], device) -> Dict[str, torch.Tensor]:
+    """The reference's ``sum(x.astype(f32) for x in xs) / len(xs)`` leaf by
+    leaf: the models added in order, then one IEEE division by a tensor
+    filled on the device."""
+    n = torch.full((), float(len(models)), dtype=torch.float32, device=device)
+    return {name: sum(m[name].float() for m in models) / n for name in models[0]}
+
+
+def run_google(
+    task, nodes: List[SimNode], dcfg: DagFLConfig, sim: SimConfig,
+    global_val: Dict[str, np.ndarray], device="cuda",
+) -> SimResult:
+    """Google FL on ``device`` (CUDA unless asked for the CPU)."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(sim.seed)
+    lat = LatencyModel.create(dcfg, sim.seed)
+    gv = _tb(global_val, dev)
+    N, cohort = len(nodes), lat.google_cohort
+    params = task.init(sim.seed, dev)
+    train = make_epoch_train(task)
+
+    t, done, curve, lats = 0.0, 0, [], []
+    while done < sim.iterations:
+        sel = rng.choice(N, size=cohort, replace=False)
+        # shared-medium: cohort downloads then uploads serialize (2*c*tx);
+        # training runs in parallel (max d0)
+        d0s = [0.0 if nodes[s].behavior == "lazy" else lat.d0(s) for s in sel]
+        round_time = 2 * cohort * lat.tx_time() + max(d0s)
+        locals_ = []
+        for s in sel:
+            node = nodes[s]
+            if node.behavior == "lazy":
+                locals_.append(params)                    # re-uploads the global
+            else:
+                p, _ = train(params, _tb(node.epoch(sim.steps_per_iter, sim.minibatch), dev))
+                locals_.append(p)
+        params = _average(locals_, dev)
+        t += round_time
+        done += cohort
+        lats.extend([round_time] * cohort)               # every member waits the round
+        if (done // cohort) % max(sim.eval_every // cohort, 1) == 0 or done >= sim.iterations:
+            curve.append((done, t, float(task.eval_fn(params, gv))))
+
+    it_arr, t_arr, a_arr = map(np.asarray, zip(*curve))
+    return SimResult("google", it_arr, t_arr, a_arr, float(np.mean(lats)), params)
+
+
+# ---------------------------------------------------------------------------
+# Asynchronous FL (server-side mixing, Xie et al. [7])
+# ---------------------------------------------------------------------------
+
+
+def run_async(
+    task, nodes: List[SimNode], dcfg: DagFLConfig, sim: SimConfig,
+    global_val: Dict[str, np.ndarray], device="cuda",
+) -> SimResult:
+    """Asynchronous FL on ``device`` (CUDA unless asked for the CPU)."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(sim.seed)
+    lat = LatencyModel.create(dcfg, sim.seed)
+    gv = _tb(global_val, dev)
+    N = len(nodes)
+    params = task.init(sim.seed, dev)
+    train = make_epoch_train(task)
+    mix = sim.async_mix
+
+    starts = _poisson_starts(rng, dcfg.arrival_rate, sim.iterations)
+    curve, lats = [], []
+    for i, t0 in enumerate(starts):
+        node = nodes[rng.integers(0, N)]
+        lazy = node.behavior == "lazy"
+        t1 = t0 + lat.async_iteration(node.node_id, lazy=lazy)
+        if lazy:
+            local = params
+        else:
+            local, _ = train(params, _tb(node.epoch(sim.steps_per_iter, sim.minibatch), dev))
+        params = {
+            name: ((1 - mix) * g.float() + mix * local[name].float()).to(g.dtype)
+            for name, g in params.items()
+        }
+        lats.append(t1 - t0)
+        if (i + 1) % sim.eval_every == 0 or i == sim.iterations - 1:
+            curve.append((i + 1, t1, float(task.eval_fn(params, gv))))
+
+    it_arr, t_arr, a_arr = map(np.asarray, zip(*curve))
+    return SimResult("async", it_arr, t_arr, a_arr, float(np.mean(lats)), params)
+
+
+# ---------------------------------------------------------------------------
+# Block FL (miners + PoW, Kim et al. [3])
+# ---------------------------------------------------------------------------
+
+
+def run_block(
+    task, nodes: List[SimNode], dcfg: DagFLConfig, sim: SimConfig,
+    global_val: Dict[str, np.ndarray], num_miners: int = 5, device="cuda",
+) -> SimResult:
+    """Block FL on ``device`` (CUDA unless asked for the CPU)."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(sim.seed)
+    lat = LatencyModel.create(dcfg, sim.seed)
+    gv = _tb(global_val, dev)
+    N = len(nodes)
+    params = task.init(sim.seed, dev)
+    train = make_epoch_train(task)
+
+    miner_of = {i: i % num_miners for i in range(N)}
+    collected: List[List[Any]] = [[] for _ in range(num_miners)]
+    first_ts: List[Optional[float]] = [None] * num_miners
+    pow_until: List[float] = [0.0] * num_miners          # busy mining until t
+    global_acc = float(task.eval_fn(params, gv))
+
+    starts = _poisson_starts(rng, dcfg.arrival_rate, sim.iterations)
+    curve, lats, dropped = [], [], 0
+    for i, t0 in enumerate(starts):
+        node = nodes[rng.integers(0, N)]
+        m = miner_of[node.node_id]
+        lazy = node.behavior == "lazy"
+        t1 = t0 + lat.block_iteration(node.node_id, lazy=lazy)
+        lats.append(t1 - t0)
+        if lazy:
+            local = params
+        else:
+            local, _ = train(params, _tb(node.epoch(sim.steps_per_iter, sim.minibatch), dev))
+
+        if t1 < pow_until[m]:
+            dropped += 1                                  # miner busy mining: tx lost
+        else:
+            # miner validates with the full test set (Section V.A.1)
+            acc = float(task.eval_fn(local, gv))
+            if acc >= global_acc - sim.block_margin:
+                collected[m].append(local)
+                if first_ts[m] is None:
+                    first_ts[m] = t1
+            # block trigger: 5 tx or 10 s since first
+            if collected[m] and (
+                len(collected[m]) >= lat.block_collect
+                or t1 - (first_ts[m] or t1) >= lat.block_timeout
+            ):
+                mine = lat.pow_time(rng)
+                pow_until[m] = t1 + mine
+                # the block extends the chain: previous global is a member of
+                # the average (keeps small blocks from thrashing the model)
+                params = _average([params] + collected[m], dev)
+                global_acc = float(task.eval_fn(params, gv))
+                collected[m], first_ts[m] = [], None
+
+        if (i + 1) % sim.eval_every == 0 or i == sim.iterations - 1:
+            curve.append((i + 1, t1, global_acc))
+
+    it_arr, t_arr, a_arr = map(np.asarray, zip(*curve))
+    return SimResult(
+        "block", it_arr, t_arr, a_arr, float(np.mean(lats)), params,
+        {"dropped": dropped},
+    )
+
+
+SYSTEMS: Dict[str, Callable] = {
+    "dagfl": run_dagfl,
+    "dagfl_gossip": run_dagfl_gossip,
+    "google": run_google,
+    "async": run_async,
+    "block": run_block,
+}
