@@ -28,7 +28,17 @@ builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (into
    and int4, beside the ticks runs of the same config, (d) a jittered
    8-regular overlay, cut in depth; (2f) the §IV in-system tip
    simulation at Table-I size and at the reference's bench point; each
-   path under ``torch.profiler`` too, shorter; and (2g) telemetry
+   path under ``torch.profiler`` too, shorter; (2l) inference serving,
+   ``run_dagfl_gossip(serve=ServeConfig())`` on path (c) raw (100 nodes
+   at 1 request/s each): the run repeats bitwise, rate 0 and no serving
+   are one run, serving leaves the ledgers and transport as they were,
+   requests are conserved, no batch exceeds its slots, every node's
+   arrivals equal the host replay of its draws, the gated staleness is
+   positive, one union fold and one dedup an INFER batch; then with the
+   histograms (queue wait, staleness at serve) and a profiled window of
+   serving and serve-free runs (device operations and host syncs an INFER
+   batch); (3l) a small banked serving run card against CPU and the default
+   draws on both devices; and (2g) telemetry
    (``obs=ObsConfig(hist=HistConfig())``) on the ticks main path, the
    Table-I bank, int4 over 1 Mbit/s and the events engine's path (c), each
    run with telemetry off and on (bitwise the same run; the histogram
@@ -196,8 +206,9 @@ MAIN_EDGES = MAIN_NODES * (MAIN_NODES - 1)   # directed edges of full(100): the 
 EVENT_POP_BYTES_PER_SLOT = 13   # f32 time, i32 kind, i32 seq, bool valid
 POP_COLD_BYTES = 64_000_000     # the queues a cold event_pop timing cycles through (> 50 MB L2)
 # path (d), the jittered 8-regular overlay: ~550 single-link batches per
-# simulated second, so its depth is cut to keep the phase near 90 s
-JITTER_ITERATIONS = 60
+# simulated second, so its depth is cut (60 until phase 2l came, 50-90 s;
+# nothing it checks depends on the depth)
+JITTER_ITERATIONS = 20
 TIP_SIM_F = 1.5e9               # the mean of Table I's f range: h = 2.08 s
 TIP_SIM_HORIZON = 600.0
 TIP_SIM_PENDING = 64            # simulate_insystem_tips' max_pending
@@ -221,6 +232,13 @@ LSTM_EVAL_EVERY = 2
 SMALL_DAGFL_NODES, SMALL_BASELINE_NODES = 8, 12
 OBS_ITERATIONS = 100        # phase 2g's depth: each path runs twice (telemetry off, on)
 FAULT_ITERATIONS = 100      # phase 2h's depth: each faulted path beside its unfaulted run
+# phase 2l's depth and its profiled window's: an INFER batch is about 120
+# eager launches (3 ms of host on one H100), about 300 of them an iteration,
+# so the depth is cut from 20 (29.5 simulated s, 2,900 requests; 269 s the
+# phase, most of it parsing a profile of 8 iterations) to 8, and the window
+# to one iteration (73 s of parsing at 2)
+SERVE_ITERATIONS = 8
+SERVE_PROFILED_ITERATIONS = 1
 # the served model (2i): qwen3-0.6b's prefill length, the decode batch (the
 # decode_32k shape's 128 cut to 8, 30.1 GB of cache at its 32k context), the
 # steps timed and profiled, and the slot server's load
@@ -648,9 +666,10 @@ LEDGER_COLUMNS = ("publisher", "publish_time", "approvals", "approvers", "approv
                   "contributing_m1")
 
 
-def check_same_run(what, a, b):
-    """Two runs of the gossip path agree: curve, latency, and the union's
-    and every replica's ledger columns (integer columns and times)."""
+def check_same_run(what, a, b, counters=("sync_rounds", "approvals_issued", "approvals_in_union")):
+    """Two runs of the gossip path agree: curve, latency, the union's and
+    every replica's ledger columns (integer columns and times), and
+    ``counters``."""
     check(a.avg_latency == b.avg_latency, f"{what}: avg latency differs")
     for name in ("iters", "times", "accs"):
         check(np.array_equal(getattr(a, name), getattr(b, name)),
@@ -660,7 +679,7 @@ def check_same_run(what, a, b):
         for name in LEDGER_COLUMNS:
             check(torch.equal(getattr(da, name).cpu(), getattr(db, name).cpu()),
                   f"{what}: {part} {name} differs")
-    for key in ("sync_rounds", "approvals_issued", "approvals_in_union"):
+    for key in counters:
         check(a.extras[key] == b.extras[key],
               f"{what}: {key} differs: {a.extras[key]} vs {b.extras[key]}")
 
@@ -899,7 +918,7 @@ PROFILED_KERNELS = {
 }
 
 
-def phase_profile(system="run_dagfl", label=None, **options):
+def phase_profile(system="run_dagfl", label=None, iterations=PROFILED_ITERATIONS, **options):
     """A path again, shorter, under ``torch.profiler``: the device's busy
     share and where its time goes. The profiler slows the host, so these
     times are not the main path's. ``options`` go to the entry point."""
@@ -910,7 +929,7 @@ def phase_profile(system="run_dagfl", label=None, **options):
 
     dcfg = CNN_TASK.dagfl
     nodes, gval = paper_setup(dcfg.num_nodes, 28)
-    sim = systems.SimConfig(iterations=PROFILED_ITERATIONS, eval_every=EVAL_EVERY,
+    sim = systems.SimConfig(iterations=iterations, eval_every=EVAL_EVERY,
                             minibatch=dcfg.minibatch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -919,7 +938,7 @@ def phase_profile(system="run_dagfl", label=None, **options):
                                        **options)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t)
-    out = {"system": label or system, "iterations": PROFILED_ITERATIONS,
+    out = {"system": label or system, "iterations": iterations,
            **trace_summary(prof, wall_ms)}
     if "device_ops" not in out:
         return out
@@ -2020,6 +2039,211 @@ def phase_small_tip_agreement():
               f"tip sim small: union {name} differs")
     check(g.overflow > 0, "tip sim small: no start found every pending slot taken")
     return {"published": g.published, "overflow": g.overflow, "tail_mean": g.tail_mean(0.5)}
+
+
+# ---------------------------------------------------------------------------
+# inference serving under gossip: full width (2l), card vs CPU (3l)
+# ---------------------------------------------------------------------------
+
+
+def serve_options(serve, **extra):
+    """Phase 2l's path: events path (c) raw, full(100) with 0.5 s links at
+    1 Mbit/s, phi = 7 MB in 4 chunks, with ``serve`` (a ``ServeConfig`` or
+    None)."""
+    return dict(events_constrained_runs()["raw"], engine="events", serve=serve, **extra)
+
+
+def same_serve_report(what, a, b):
+    check(a.keys() == b.keys(), f"{what}: serve report keys differ")
+    for key, value in a.items():
+        same = (np.array_equal(value, b[key]) if isinstance(value, np.ndarray)
+                else value == b[key] or (value != value and b[key] != b[key]))
+        check(same, f"{what}: serve report {key} differs: {value} vs {b[key]}")
+
+
+def check_same_transport(what, a, b):
+    """Two banked runs with the same transport: ``check_same_run`` but for
+    the batch count and the dispatch labels (a serving run's INFER batches
+    count in both), the floats, the transport state and the edge draws."""
+    check_same_run(what, a, b, counters=("approvals_issued", "approvals_in_union"))
+    check_same_floats(what, a, b)
+    check(a.extras["edge_draws"] == b.extras["edge_draws"], f"{what}: edge draws differ")
+    for name in ("have", "credit", "sent"):
+        check(torch.equal(getattr(a.extras["replicas"].bank_state, name).cpu(),
+                          getattr(b.extras["replicas"].bank_state, name).cpu()),
+              f"{what}: transport {name} differs")
+
+
+def phase_serve_main_path(cuda_build):
+    """Phase 2l, inference serving at full width: ``run_dagfl_gossip`` with
+    ``serve=ServeConfig()`` (1 request/s a node, 4 slots, 0.05 s a batch,
+    queue 64) on events path (c) raw at ``SERVE_ITERATIONS``.
+
+    The serving run repeats bitwise (the repeat is the run with telemetry
+    below, which only reads); rate 0 and ``serve=None`` are one run bitwise,
+    and the serving run's ledgers and transport are theirs (serving only
+    reads). Requests are conserved, no batch exceeds its
+    slots, every node's arrivals equal the host replay of its draws up to
+    the last advance, and on these links the gated staleness is positive.
+    The launches: one winner a round that drew, a union fold a check and
+    one more a snapshot (as every run), plus one union fold an INFER batch;
+    one dedup a batch, INFER batches included. Then the same with telemetry
+    and the histograms (bitwise the serving run; ``queue_wait`` and
+    ``serve_stale`` sampled), and a profiled window of the serving and the
+    serve-free run at ``SERVE_PROFILED_ITERATIONS``: device operations and
+    host syncs an INFER batch, the device's idle share."""
+    from repro_torch.net.serve import ServeConfig, arrival_times
+    from repro_torch.obs import HistConfig, ObsConfig
+
+    cfg = ServeConfig()
+    n = SERVE_ITERATIONS
+    runs = {}
+    phase_s = {}
+    t = time.perf_counter()
+    for name, serve in (("serve", cfg), ("rate0", ServeConfig(rate=0.0)), ("none", None)):
+        runs[name] = full_width_run(cuda_build, n, **serve_options(serve))
+    phase_s["three_runs"] = time.perf_counter() - t
+    (res, wall_s, launches), (none, none_s, none_launches) = runs["serve"], runs["none"]
+    ex = res.extras
+    rep = ex["serve_report"]
+    check(res.extras["replicas"].dags.publisher.is_cuda, "serve: replicas are not on the card")
+    check(ex["events_capped"] == 0, f"serve: {ex['events_capped']} advances capped")
+    # the degenerate limit, and serving as a pure reader
+    rate0 = runs["rate0"][0]
+    check_same_bank_run("serve rate 0 vs None", rate0, none, 0.0)
+    check_same_floats("serve rate 0 vs None", rate0, none)
+    for key in ("edge_draws", "events_processed", "dispatch_counts"):
+        check(rate0.extras[key] == none.extras[key], f"serve rate 0: {key} differs")
+    check("serve_report" not in rate0.extras and "serve_report" not in none.extras,
+          "serve: a report without serving")
+    check(runs["rate0"][2] == none_launches, "serve rate 0: launches differ from serve=None")
+    check_same_transport("serve vs serve-free", res, none)
+    infer = ex["events_processed"] - none.extras["events_processed"]
+    check(infer > 0, "serve: no INFER batch ran")
+    # conservation, the slot cap, staleness, the host replay
+    arrived = rep["requests_served"] + rep["queued"] + rep["inflight"] + rep["dropped"]
+    check(np.array_equal(rep["arrivals"], arrived), "serve: requests not conserved")
+    check(bool(np.all(rep["requests_served"] + rep["inflight"] <= rep["batches"] * cfg.slots)),
+          "serve: a batch exceeded its slots")
+    check(rep["samples"] + rep["samples_dropped"] == int(rep["batches"].sum()),
+          "serve: one staleness sample a batch")
+    check(rep["staleness_max"] > 0, "serve: gated staleness never positive on 1 Mbit/s links")
+    horizon = float(np.float32(res.times[-1]))         # the last commit's advance
+    t = time.perf_counter()
+    replay = [len(arrival_times(0, cfg, i, horizon)) for i in range(MAIN_NODES)]
+    replay_s = time.perf_counter() - t
+    check(np.array_equal(rep["arrivals"], np.asarray(replay)),
+          f"serve: arrivals {rep['arrivals'].tolist()} vs the host replay {replay}")
+    # launches: the serve-free run's, plus a union fold and a dedup an INFER batch
+    expected = dict(none_launches)
+    for kernel in ("gossip_winner", "chunk_dedup", "event_pop"):
+        expected[kernel] = expected.get(kernel, 0) + infer
+    advances = sum(ex["dispatch_counts"].values()) - ex["dispatch_counts"].get("bank_commit", 0)
+    check(advances == sum(none.extras["dispatch_counts"].values())
+          - none.extras["dispatch_counts"].get("bank_commit", 0), "serve: advances differ")
+    for kernel in set(expected) | set(launches):
+        check(launches.get(kernel, 0) == expected.get(kernel, 0),
+              f"serve: {kernel} launched {launches.get(kernel, 0)} times, expected "
+              f"{expected.get(kernel, 0)}")
+    # telemetry with the histograms: the same run again (the repeat)
+    t = time.perf_counter()
+    obs, obs_s, obs_launches = full_width_run(cuda_build, n, **serve_options(
+        cfg, obs=ObsConfig(hist=HistConfig())))
+    check_same_transport("serve obs", obs, res)
+    same_serve_report("serve obs", obs.extras["serve_report"], rep)
+    report = obs.extras["obs"]
+    for name in ("queue_wait", "serve_stale"):
+        check(report.hist["counts"][name].sum() > 0, f"serve obs: {name} histogram empty")
+    check(obs_launches.get("hist_bincount", 0) > 0, "serve obs: no histogram launch")
+    phase_s["obs_run"] = time.perf_counter() - t
+    # a profiled window, with and without serving
+    t = time.perf_counter()
+    prof, prof_none = (phase_profile("run_dagfl_gossip", label=f"serve={serve}",
+                                     iterations=SERVE_PROFILED_ITERATIONS, **serve_options(serve))
+                       for serve in (cfg, None))
+    phase_s["profiles"] = time.perf_counter() - t
+    window = {"serve": prof, "none": prof_none}
+    prof_infer = prof.get("event_batches", 0) - prof_none.get("event_batches", 0)
+    if "device_ops" in prof and "device_ops" in prof_none and prof_infer > 0:
+        window["infer_batches"] = prof_infer
+        window["device_ops_per_infer_batch"] = (prof["device_ops"] - prof_none["device_ops"]) \
+            / prof_infer
+        window["host_syncs_per_infer_batch"] = (prof["host_syncs"] - prof_none["host_syncs"]) \
+            / prof_infer
+    return {
+        "iterations": n, "nodes": MAIN_NODES, "rate": cfg.rate, "slots": cfg.slots,
+        "service_time_s": cfg.service_time, "queue_cap": cfg.queue_cap,
+        "ms_per_iteration_serve": 1e3 * wall_s / n,
+        "ms_per_iteration_none": 1e3 * none_s / n,
+        "ms_per_iteration_rate0": 1e3 * runs["rate0"][1] / n,
+        "ms_per_iteration_obs": 1e3 * obs_s / n,
+        "simulated_s": horizon, "events_processed": ex["events_processed"],
+        "infer_batches": infer, "infer_batches_per_iteration": infer / n,
+        "delivery_batches": ex["edge_draws"],
+        "arrived": rep["arrived_total"], "served": rep["served_total"],
+        "dropped": rep["dropped_total"], "batches": int(rep["batches"].sum()),
+        "staleness_p50": rep["staleness_p50"], "staleness_p99": rep["staleness_p99"],
+        "staleness_max": rep["staleness_max"], "host_replay_s": replay_s,
+        "hist": hist_percentiles(report), "launches": launches,
+        "launches_serve_free": none_launches, "launches_obs": obs_launches,
+        "profile": window, "phase_s": phase_s, "nvidia_smi": nvidia_smi_line(),
+    }
+
+
+def small_serve_draw(device, n):
+    """Unit exponentials made with numpy per (node, count), the same on every
+    device (the arrival draws of phase 3l)."""
+    def draw(counts):
+        c = counts.cpu().numpy()
+        e = [np.random.default_rng([4, i, int(c[i])]).standard_exponential(dtype=np.float32)
+             for i in range(n)]
+        return torch.from_numpy(np.asarray(e, np.float32)).to(device)
+    return draw
+
+
+def phase_small_serve_agreement():
+    """Phase 3l: a small banked serving run on the card and on the CPU with
+    the same host-made draws (a lossy starved ring with jittered links and a
+    partition that heals): ledgers, transport, the serve report and the
+    curve bitwise, parameters within 1e-4; and the default counter-based
+    draws (``torch_serve_draw``) give the same f32 values on both devices
+    over a grid of 4,096 nodes and 64 counts each."""
+    from repro_torch.fl.experiments import default_dagfl_config, make_cnn_setup
+    from repro_torch.fl.systems import SimConfig, run_dagfl_gossip
+    from repro_torch.net.bank import BankGossipConfig
+    from repro_torch.net.gossip import PartitionSchedule
+    from repro_torch.net.serve import ServeConfig, torch_serve_draw
+    from repro_torch.net.topology import ring, split_halves
+
+    n = 8
+    dcfg = default_dagfl_config(num_nodes=n)
+    sim = SimConfig(iterations=12, eval_every=4, seed=0)
+    out = {}
+    for device in ("cuda", "cpu"):
+        task, nodes, gval, _ = make_cnn_setup(num_nodes=n, seed=0)
+        draw, edge_draw = small_draws(device, n, dcfg.capacity)
+        out[device] = run_dagfl_gossip(
+            task, nodes, dcfg, sim, gval,
+            topology=ring(n, drop=0.3, bandwidth=1e7, link_latency=0.5, latency_jitter=1.0),
+            partition=PartitionSchedule(split_halves(n), 5.0, 12.0),
+            bank_gossip=BankGossipConfig(chunks_per_slot=MAIN_CHUNKS, slot_bytes=TABLE1_SLOT_BYTES),
+            engine="events", serve=ServeConfig(rate=3.0, sample_capacity=256), device=device,
+            draw=draw, edge_draw=edge_draw, serve_draw=small_serve_draw(device, n))
+    g, c = out["cuda"], out["cpu"]
+    diff = check_same_bank_run("serve small", g, c, 1e-4)
+    for key in ("events_processed", "edge_draws"):
+        check(g.extras[key] == c.extras[key], f"serve small: {key} differs")
+    same_serve_report("serve small", g.extras["serve_report"], c.extras["serve_report"])
+    rep = g.extras["serve_report"]
+    check(rep["served_total"] > 0 and rep["staleness_max"] > 0,
+          "serve small: nothing served, or never stale")
+    counts = [torch.full((4096,), k, dtype=torch.int32) for k in range(64)]
+    grid = {dev: torch.stack([torch_serve_draw(7, 13, 4096, dev)(k.to(dev)) for k in counts])
+            for dev in ("cuda", "cpu")}
+    check(same_bits(grid["cuda"].cpu(), grid["cpu"]), "serve draws: the card differs from the CPU")
+    return {"final_params_max_abs_diff": diff, "events_processed": g.extras["events_processed"],
+            "arrived": rep["arrived_total"], "served": rep["served_total"],
+            "staleness_max": rep["staleness_max"], "draw_grid": [4096, 64]}
 
 
 # ---------------------------------------------------------------------------
@@ -3834,6 +4058,14 @@ def main() -> int:
         tip_sims = phase_tip_sims(cuda_build)
         print(json.dumps({"tip_sims": tip_sims}))
         print(f"[phase 2f] tip simulations: {time.perf_counter() - t:.1f} s")
+        # serving, also before the telemetry phases: 2l profiles a window
+        t = time.perf_counter()
+        serve_path = phase_serve_main_path(cuda_build)
+        print(json.dumps({"serve_main_path": serve_path}))
+        print(f"[phase 2l] inference serving: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        print(json.dumps({"small_serve_agreement": phase_small_serve_agreement()}))
+        print(f"[phase 3l] inference serving, card against CPU: {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
         obs_paths = phase_obs_main_path(cuda_build, tip_sims["e_table1"]["runs"][0])
         print(json.dumps({"obs_main_path": obs_paths}))

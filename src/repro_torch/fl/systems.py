@@ -39,7 +39,10 @@ telemetry runs in every loop and ``extras["obs"]`` holds the drained
 ``ObsReport`` (``repro_torch.obs``). With ``faults`` adversary roles act in
 the overlay (``repro_torch.net.faults``; its draws go through
 ``fault_draw``), the rejection credit biases tip selection, and
-``extras["fault_report"]`` holds the post-mortem.
+``extras["fault_report"]`` holds the post-mortem. With ``serve`` (events
+engine) every node also serves Poisson inference requests from its gated
+view (``repro_torch.net.serve``; arrivals through ``serve_draw``) and
+``extras["serve_report"]`` holds the throughput and staleness-at-serve.
 """
 from __future__ import annotations
 
@@ -66,6 +69,7 @@ from repro_torch.fl.nodes import SimNode
 from repro_torch.fl.tasks import make_epoch_train
 from repro_torch.net import gossip as gossip_lib
 from repro_torch.net import replica as replica_lib
+from repro_torch.net import serve as serve_lib
 from repro_torch.net import topology as topo_lib
 from repro_torch.obs import trace as obs_trace
 
@@ -396,11 +400,12 @@ class _GossipLedger:
     name = "dagfl_gossip"
 
     def __init__(self, state, topology, gossip, partition, bank_gossip=None, edge_draw=None,
-                 obs=None, faults=None, fault_draw=None):
+                 obs=None, faults=None, fault_draw=None, serve=None, serve_draw=None):
         self.net = gossip_lib.GossipNetwork(state.dag, state.bank, topology, gossip, partition,
                                             bank_cfg=bank_gossip, obs_cfg=obs,
-                                            faults_cfg=faults, edge_draw=edge_draw,
-                                            fault_draw=fault_draw)
+                                            faults_cfg=faults, serve_cfg=serve,
+                                            edge_draw=edge_draw, fault_draw=fault_draw,
+                                            serve_draw=serve_draw)
         self.capacity = int(state.dag.publisher.shape[0])
         self.seq = int(state.dag.count)       # genesis consumed sequence 0
         # distinct approvals issued, counted on the device, read once in extras
@@ -505,6 +510,10 @@ class _GossipLedger:
         if self.net.faults_cfg is not None:
             # the adversary post-mortem: roles, rejections, quarantine, ASR
             out["fault_report"] = self.net.fault_report()
+        sr = self.net.serve_report()
+        if sr is not None:
+            # per-node throughput and staleness-at-serve (serve.report)
+            out["serve_report"] = sr
         return out | {
             # a copy: the replicas are written in place
             "replicas": replicas._replace(dags=replica_lib.snapshot(replicas.dags)),
@@ -542,6 +551,7 @@ def run_dagfl_gossip(
     draw: Optional[UniformDraw] = None,
     edge_draw: Optional[gossip_lib.EdgeDraw] = None,
     fault_draw=None,
+    serve_draw=None,
 ) -> SimResult:
     """DAG-FL where each node runs Algorithm 2 against its own DAG replica.
 
@@ -571,9 +581,10 @@ def run_dagfl_gossip(
     uniform delay equal to a dyadic sync period the two engines are bitwise
     identical. ``extras["events_processed"]`` counts the event batches.
 
-    ``draw``, ``edge_draw`` and ``fault_draw`` replace the tip-selection,
-    edge and fault draws (``run_dagfl``, ``repro_torch.net.gossip``,
-    ``repro_torch.net.faults``).
+    ``draw``, ``edge_draw``, ``fault_draw`` and ``serve_draw`` replace the
+    tip-selection, edge, fault and arrival draws (``run_dagfl``,
+    ``repro_torch.net.gossip``, ``repro_torch.net.faults``,
+    ``repro_torch.net.serve``).
 
     ``obs`` (a ``repro_torch.obs.ObsConfig``) turns on the overlay's
     telemetry: metric series, the event trace (with the ledger's PUBLISH and
@@ -593,22 +604,32 @@ def run_dagfl_gossip(
     and ``extras["fault_report"]`` holds roles, rejections, quarantined
     links and the attack-success numerator.
 
-    ``mesh`` and ``serve`` are not ported yet and raise
-    ``NotImplementedError``, alone or with ``bank_gossip``, its codec,
-    ``obs``, ``faults`` or ``engine="events"``.
+    ``serve`` (a ``repro_torch.net.serve.ServeConfig``, events engine only)
+    adds Poisson inference requests at every node, batched into its slots
+    and served from its availability-gated view, so the staleness a request
+    sees is the transport's doing; ``extras["serve_report"]`` holds the
+    per-node throughput and the staleness samples. Serving only reads the
+    ledger: the training run is the serve-free one, and ``serve=None`` or a
+    rate of 0 gives no report.
+
+    ``mesh`` is not ported yet and raises ``NotImplementedError``, alone or
+    with any other option.
     """
-    gossip_lib._unported(mesh=(mesh, "ROADMAP A.12"), serve=(serve, "ROADMAP A.11"))
+    gossip_lib._unported(mesh=(mesh, "ROADMAP A.12"))
     if topology is None:
         topology = topo_lib.full(len(nodes))
     if gossip is None:
         gossip = gossip_lib.GossipConfig(sync_period=1.0, seed=sim.seed)
     if engine is not None:
         gossip = dataclasses.replace(gossip, engine=engine)
+    if serve_lib.serve_key(serve) is not None:
+        serve_lib.validate_serve(serve, gossip.engine)
     return _run_dagfl_events(
         task, nodes, dcfg, sim, global_val, weighted,
         lambda state, commit_fn: _GossipLedger(state, topology, gossip, partition,
                                                bank_gossip=bank_gossip, edge_draw=edge_draw,
-                                               obs=obs, faults=faults, fault_draw=fault_draw),
+                                               obs=obs, faults=faults, fault_draw=fault_draw,
+                                               serve=serve, serve_draw=serve_draw),
         device, draw,
     )
 

@@ -39,14 +39,23 @@ then completions land, then new iterations read):
                     (``(t - last_serviced) * B/8``).
   ``KIND_PUBLISH``  iteration completion in the §IV in-system simulation.
   ``KIND_START``    iteration start in the §IV in-system simulation.
-  ``KIND_INFER``    inference serving (a constant only: serving is not
-                    ported yet, ROADMAP A.11).
+  ``KIND_INFER``    inference serving (``repro_torch.net.serve``): a
+                    node's request arrival or batch completion.
 
 Telemetry: both advances take an ``observe`` callback, called after every
 batch with ``(t, old_dags, dags, live, old_bstate, bstate, old_fstate,
-fstate)`` (the ``GossipNetwork``'s ``observe_round`` step; None runs
-nothing). The batch bodies are functional, so the pre-batch state is the
-loop's own.
+fstate)`` and, when serving, the keyword ``serve`` (the batch's serve
+arguments to ``obs.observe_round``): the ``GossipNetwork``'s
+``observe_round`` step; None runs nothing. The batch bodies are functional,
+so the pre-batch state is the loop's own.
+
+Serving: both advances take a ``repro_torch.net.serve.ServeLayer`` and its
+``ServeState`` (None runs none of it: the serve-free loops). A batch whose
+head is an INFER slot runs ``ServeLayer.step`` against the replicas' plain
+staleness, or with the bank against the view gated by one ``chunk_dedup``
+of the presence bitmaps; it makes no edge draw and runs no bank service,
+and it counts in ``done`` as every batch does. Transport heads run the
+serve-free body.
 
 Faults: both advances take a ``repro_torch.net.faults.FaultLayer`` (None
 runs none of it). A delivery batch's live mask is attacked after drop loss
@@ -86,6 +95,7 @@ from repro_torch.kernels import event_pop as pop_kernel
 from repro_torch.net import bank as bank_lib
 from repro_torch.net import gossip as gossip_lib
 from repro_torch.net import replica as replica_lib
+from repro_torch.net import serve as serve_lib
 from repro_torch.net.topology import Topology, neighbor_table, partition_matrix
 from repro_torch.obs import trace as obs_trace
 
@@ -248,17 +258,37 @@ def _deliver_round(dags: DagState, qt, fires, uniform, t: float, qv, qkind, qsrc
 # ---------------------------------------------------------------------------
 
 
+def _serve_sample(serve, sstate) -> dict:
+    """A transport batch's serve sample for ``observe``: the served counters
+    (nothing without serving)."""
+    return {} if serve is None else {"serve": {"serve_counts": sstate.served}}
+
+
+def _infer_batch(serve, sstate, t: float, qt, qv, stale, observe, obs_args):
+    """An INFER head's batch: ``serve.step`` at instant ``t`` against the
+    gated staleness ``stale``, then ``observe(t, *obs_args)`` with the serve
+    samples. Returns ``(sstate, qt, qv)``."""
+    old = sstate
+    sstate, qt, qv, admitted, batch_now, s_now = serve.step(sstate, t, qt, qv, stale)
+    if observe is not None:
+        observe(t, *obs_args,
+                serve=serve_lib.observed(old, sstate, admitted, batch_now, s_now, stale))
+    return sstate, qt, qv
+
+
 def advance_events(dags: DagState, queue: EventQueue, islot, next_uniform: NextUniform,
                    horizon: float, limit: int, fire_cap: int, part_mask, part_t0: float,
                    part_t1: float, drop, nbr_idx, nbr_valid, impl: str,
-                   observe: Optional[Observe] = None, faults=None):
+                   observe: Optional[Observe] = None, faults=None, serve=None, sstate=None):
     """The event-driven ``advance`` without the bank (the reference's
-    ``_advance_events_jit`` body, or with ``faults`` its
-    ``_advance_events_faults_jit``, without serving): every batch is one
-    ``_deliver_round``, then ``observe`` when given. ``horizon``,
-    ``part_t0`` and ``part_t1`` are f32 values.
+    ``_advance_events_jit`` body, with ``faults`` its
+    ``_advance_events_faults_jit``, with ``serve`` its
+    ``_advance_events_serve_jit``): every transport batch is one
+    ``_deliver_round``, an INFER batch one ``ServeLayer.step``, then
+    ``observe`` when given. ``horizon``, ``part_t0`` and ``part_t1`` are f32
+    values.
 
-    Returns ``(dags, qt, qv, done)`` — ``done`` batches ran.
+    Returns ``(dags, qt, qv, done, sstate)`` — ``done`` batches ran.
     """
     qt, qv = queue.time, queue.valid
     qsrc, qdst = queue.src.long(), queue.dst.long()
@@ -268,22 +298,29 @@ def advance_events(dags: DagState, queue: EventQueue, islot, next_uniform: NextU
         head = _pop_head(qt, queue.kind, queue.seq, qv, horizon)
         if head is None:
             break
+        if serve is not None and head.kind == KIND_INFER:
+            sstate, qt, qv = _infer_batch(serve, sstate, head.t, qt, qv,
+                                          serve_lib.gated_staleness(dags), observe,
+                                          (dags, dags, None))
+            done += 1
+            continue
         old = dags
         dags, qt, fires, _dlv, live, _pm = _deliver_round(
             dags, qt, fires, next_uniform(), head.t, qv, queue.kind, qsrc, qdst, islot,
             horizon, fire_cap, part_mask, part_t0, part_t1, drop, nbr_idx, nbr_valid, impl,
             faults)
         if observe is not None:
-            observe(head.t, old, dags, live)
+            observe(head.t, old, dags, live, **_serve_sample(serve, sstate))
         done += 1
-    return dags, qt, qv, done
+    return dags, qt, qv, done, sstate
 
 
 def advance_events_bank(dags: DagState, bstate: bank_lib.BankState, last_srv, digest,
                         queue: EventQueue, islot, next_uniform: NextUniform, horizon: float,
                         limit: int, fire_cap: int, part_mask, part_t0: float, part_t1: float,
                         drop, nbr_idx, nbr_valid, bw_bytes, chunk_bytes: float, impl: str,
-                        observe: Optional[Observe] = None, faults=None, fstate=None):
+                        observe: Optional[Observe] = None, faults=None, fstate=None,
+                        serve=None, sstate=None):
     """The event-driven ``advance`` with the model bank gossiped (the
     reference's ``_advance_events_bank_jit`` plain body, or with ``faults``
     and its carry ``fstate`` its ``_advance_events_bank_faults_jit``).
@@ -301,9 +338,11 @@ def advance_events_bank(dags: DagState, bstate: bank_lib.BankState, last_srv, di
     chunk (an f32 value: ``chunk_bytes * wire_ratio()`` with a codec).
     ``observe``, when given, runs after every batch. With ``faults`` every
     batch's service is ``FaultLayer.service`` (its spoof draws indexed by
-    the batch's count within this advance) and ``fstate`` is threaded.
+    the batch's count within this advance, INFER batches included) and
+    ``fstate`` is threaded. With ``serve`` an INFER head serves against the
+    gated view (one ``chunk_dedup``) and leaves the transport as it was.
 
-    Returns ``(dags, bstate, fstate, last_srv, qt, qv, done)``.
+    Returns ``(dags, bstate, fstate, last_srv, qt, qv, done, sstate)``.
     """
     n = dags.publisher.shape[0]
     qt, qv = queue.time, queue.valid
@@ -321,6 +360,12 @@ def advance_events_bank(dags: DagState, bstate: bank_lib.BankState, last_srv, di
         if head is None:
             break
         t = head.t
+        if serve is not None and head.kind == KIND_INFER:
+            stale = serve_lib.gated_staleness(dags, chunk_kernel.chunk_dedup(bstate.have, digest))
+            sstate, qt, qv = _infer_batch(serve, sstate, t, qt, qv, stale, observe,
+                                          (dags, dags, None, bstate, bstate, fstate, fstate))
+            done += 1
+            continue
         old_dags, old_bstate, old_fstate = dags, bstate, fstate
         batch = qv & (qt == t)
         drain = _edge_mask(n, qdst, qsrc, batch & is_drn)
@@ -351,9 +396,10 @@ def advance_events_bank(dags: DagState, bstate: bank_lib.BankState, last_srv, di
         qt = torch.where(is_drn & e_svc, torch.where(e_pend, e_next, torch.inf), qt)
         qt = torch.where(batch & is_drn & ~e_svc, e_retry, qt)
         if observe is not None:
-            observe(t, old_dags, dags, live, old_bstate, bstate, old_fstate, fstate)
+            observe(t, old_dags, dags, live, old_bstate, bstate, old_fstate, fstate,
+                    **_serve_sample(serve, sstate))
         done += 1
-    return dags, bstate, fstate, last_srv, qt, qv, done
+    return dags, bstate, fstate, last_srv, qt, qv, done, sstate
 
 
 # ---------------------------------------------------------------------------

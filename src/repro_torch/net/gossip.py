@@ -65,10 +65,18 @@ verification, back-off and quarantine); the fault draws go through
 (``repro_torch.net.faults``). An all-honest config is bitwise the
 ``faults_cfg=None`` run.
 
-Both engines are ported, with or without bank gossip, its codec, telemetry
-and fault injection; serving and a mesh are not, and ``GossipNetwork``
-raises ``NotImplementedError`` naming the ROADMAP item for each of those
-options.
+Inference serving (``serve_cfg=repro_torch.net.serve.ServeConfig(...)``,
+events engine only): each node receives Poisson requests, batches them into
+its slots and serves them from its gated view; the INFER batches run inside
+the event loop beside the transport, never draw an edge uniform and read
+the replicas only, so the training trajectory is the serve-free one.
+``serve_report`` drains the counters; ``serve_draw`` replaces the arrival
+draws as ``edge_draw`` does the edge draws. ``serve_cfg=None`` and a rate of
+0 build nothing and are bitwise the serve-free run.
+
+Both engines are ported, with or without bank gossip, its codec, telemetry,
+fault injection and (events) serving; a mesh is not, and ``GossipNetwork``
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -89,6 +97,7 @@ from repro_torch.kernels import gossip_merge as gossip_kernel
 from repro_torch.net import bank as bank_lib
 from repro_torch.net import faults as faults_lib
 from repro_torch.net import replica as replica_lib
+from repro_torch.net import serve as serve_lib
 from repro_torch.net.bank import BankGossipConfig, BankState
 from repro_torch.net.topology import Topology, neighbor_table, partition_matrix
 from repro_torch.obs import hist as hist_lib
@@ -290,9 +299,10 @@ def _unported(**options) -> None:
 class GossipNetwork:
     """The overlay on the host side: replicas, the tick clock, schedule batching.
 
-    The replicas live on the device of ``dag``. ``edge_draw`` and
-    ``fault_draw`` replace the default edge and fault draws (see the module
-    docstrings of this module and of ``repro_torch.net.faults``).
+    The replicas live on the device of ``dag``. ``edge_draw``,
+    ``fault_draw`` and ``serve_draw`` replace the default edge, fault and
+    arrival draws (see the module docstrings of this module, of
+    ``repro_torch.net.faults`` and of ``repro_torch.net.serve``).
     """
 
     def __init__(
@@ -309,8 +319,14 @@ class GossipNetwork:
         serve_cfg=None,
         edge_draw: Optional[EdgeDraw] = None,
         fault_draw: Optional[faults_lib.FaultDraw] = None,
+        serve_draw: Optional[serve_lib.ServeDraw] = None,
     ):
-        _unported(mesh=(mesh, "ROADMAP A.12"), serve_cfg=(serve_cfg, "ROADMAP A.11"))
+        _unported(mesh=(mesh, "ROADMAP A.12"))
+        # the effective serving config: None for serve_cfg=None and rate <= 0,
+        # under which nothing of the serving layer is built or run
+        serve_cfg = serve_lib.serve_key(serve_cfg)
+        if serve_cfg is not None:
+            serve_lib.validate_serve(serve_cfg, cfg.engine)
         if cfg.engine not in ("ticks", "events"):
             raise ValueError(f"unknown gossip engine: {cfg.engine!r}")
         if cfg.impl not in ("fused", "scan", "lax"):
@@ -361,8 +377,9 @@ class GossipNetwork:
         # a tick's f32 instant is (tick + 1) * _period: telemetry's samples
         # and the crash windows read it
         self._period = float(np.float32(max(period, 0.0)))
+        self._serve = self._sstate = None
         if cfg.engine == "events":
-            self._init_events(top, bank_cfg, partition)
+            self._init_events(top, bank_cfg, partition, serve_cfg, serve_draw)
         self.obs_cfg = obs_cfg
         if obs_cfg is not None:
             self._init_obs(obs_cfg, n)
@@ -400,7 +417,7 @@ class GossipNetwork:
         if self.faults_cfg is not None:
             self._fstate = faults_lib.init_fault_state(top.num_nodes, slots, c, self.device)
 
-    def _init_events(self, top: Topology, bank_cfg, partition) -> None:
+    def _init_events(self, top: Topology, bank_cfg, partition, serve_cfg, serve_draw) -> None:
         from repro_torch.net import events as events_lib
 
         period = self.cfg.sync_period
@@ -418,6 +435,15 @@ class GossipNetwork:
             self._last_srv = torch.zeros((n, n), dtype=torch.float32, device=self.device)
             self._bw_bytes = torch.from_numpy(
                 np.asarray(top.bandwidth / 8.0, np.float32)).to(self.device)
+        if serve_cfg is not None:
+            n = top.num_nodes
+            if serve_draw is None:
+                serve_draw = serve_lib.torch_serve_draw(self.cfg.seed, serve_cfg.salt, n,
+                                                        self.device)
+            self._equeue, self._eislot, infer_base = serve_lib.extend_queue(
+                self._equeue, self._eislot, n, serve_cfg, serve_draw)
+            self._serve = serve_lib.ServeLayer(serve_cfg, serve_draw, infer_base)
+            self._sstate = serve_lib.init_serve_state(n, serve_cfg, self.device)
 
     def _init_obs(self, obs_cfg, n: int) -> None:
         """The telemetry state on the device, and the host span buffer."""
@@ -426,8 +452,11 @@ class GossipNetwork:
         self._host_events = []        # (t, kind, src, dst, arg) spans
         self._part_logged = [False, False]
         if obs_cfg.hist is not None:
-            # the propagation latch starts from the actual initial state
-            self._metrics.hist = hist_lib.init_hist(obs_cfg.hist, self.replicas.dags)
+            # the propagation latch starts from the actual initial state; the
+            # queue-wait FIFO is sized by the serve queue (0 without serving)
+            qcap = self._serve.cfg.queue_cap if self._serve is not None else 0
+            self._metrics.hist = hist_lib.init_hist(obs_cfg.hist, self.replicas.dags,
+                                                    queue_cap=qcap)
 
     # --- replica access ----------------------------------------------------
 
@@ -513,9 +542,11 @@ class GossipNetwork:
     def _observe(self, t: float, old: DagState, new: DagState, edges: torch.Tensor,
                  old_b: Optional[BankState] = None, new_b: Optional[BankState] = None,
                  old_f: Optional[faults_lib.FaultState] = None,
-                 new_f: Optional[faults_lib.FaultState] = None) -> None:
+                 new_f: Optional[faults_lib.FaultState] = None,
+                 serve: Optional[dict] = None) -> None:
         """The collector step after one executed round (``obs.observe_round``);
-        a faulted bank run also passes its rejection state."""
+        a faulted bank run also passes its rejection state, a serving run its
+        serve arguments."""
         bank = {} if new_b is None else dict(
             bytes_delta=new_b.sent - old_b.sent, bstate=new_b, digest=self._digest,
             old_have=old_b.have)
@@ -523,7 +554,8 @@ class GossipNetwork:
             bank.update(rejects=new_f.rejects, rejects_delta=new_f.rejects - old_f.rejects,
                         quarantine_after=self.faults_cfg.quarantine_after)
         self._metrics, self._ring = obs_lib.observe_round(
-            self.obs_cfg, self._metrics, self._ring, t, old, new, live_edges=edges, **bank)
+            self.obs_cfg, self._metrics, self._ring, t, old, new, live_edges=edges, **bank,
+            **(serve or {}))
 
     def trace_host(self, t, kind, src, dst, arg=0.0) -> None:
         """Buffer a host-side trace span (PUBLISH/COMMIT/PARTITION: the FL
@@ -674,6 +706,23 @@ class GossipNetwork:
             )
         return report
 
+    # --- inference serving (only when constructed with an effective serve_cfg)
+
+    @property
+    def serve_state(self) -> Optional[serve_lib.ServeState]:
+        """The serving counters and samples on the device; None when serving
+        is off."""
+        return self._sstate
+
+    def serve_report(self) -> Optional[dict]:
+        """The serving summary on the host (``serve.report``): per-node
+        served, arrived, queued, in-flight, dropped and batch counts, and the
+        staleness-at-admit samples and percentiles. None when serving is off.
+        """
+        if self._serve is None:
+            return None
+        return serve_lib.report(self._sstate, self._serve.cfg)
+
     # --- the clock ---------------------------------------------------------
 
     def _mask_at(self, t: float) -> torch.Tensor:
@@ -762,18 +811,22 @@ class GossipNetwork:
                   self._part_mask, self._part_t0, self._part_t1, self._drop,
                   self._nbr_idx, self._nbr_valid)
         observe = self._observe if self.obs_cfg is not None else None
+        # the reference names its serving programs apart
+        suffix = "_serve" if self._serve is not None else ""
         if self.bank_cfg is not None:
-            dags, bstate, self._fstate, self._last_srv, qt, qv, done = self._dispatch(
-                "advance_events_bank", events_lib.advance_events_bank,
+            (dags, bstate, self._fstate, self._last_srv, qt, qv, done,
+             self._sstate) = self._dispatch(
+                "advance_events_bank" + suffix, events_lib.advance_events_bank,
                 self.replicas.dags, self.replicas.bank_state, self._last_srv, self._digest,
                 self._equeue, self._eislot, self._next_uniform, *window, self._bw_bytes,
-                self._wire_chunk_bytes, cfg.impl, observe, self._faults, self._fstate)
+                self._wire_chunk_bytes, cfg.impl, observe, self._faults, self._fstate,
+                self._serve, self._sstate)
             self.replicas = self.replicas._replace(dags=dags, bank_state=bstate)
         else:
-            dags, qt, qv, done = self._dispatch(
-                "advance_events", events_lib.advance_events, self.replicas.dags,
+            dags, qt, qv, done, self._sstate = self._dispatch(
+                "advance_events" + suffix, events_lib.advance_events, self.replicas.dags,
                 self._equeue, self._eislot, self._next_uniform, *window, cfg.impl, observe,
-                self._faults)
+                self._faults, self._serve, self._sstate)
             self.replicas = self.replicas._replace(dags=dags)
         self._equeue = self._equeue._replace(time=qt, valid=qv)
         self.tick += done

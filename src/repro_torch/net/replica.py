@@ -113,9 +113,30 @@ def merge_all(dags: DagState) -> DagState:
     return DagState(*(x[0] for x in merged))
 
 
-def missing_vs_union(dags: DagState, union: DagState = None) -> torch.Tensor:
-    """(R,) rows each replica has not yet seen relative to the union view —
-    0 everywhere iff row visibility has converged."""
+class UnionKeys(NamedTuple):
+    """The union ledger's row identities: what ``missing_vs_union`` reads."""
+
+    publisher: torch.Tensor       # (cap,) i32
+    publish_time: torch.Tensor    # (cap,) f32
+
+
+def union_keys(dags: DagState) -> UnionKeys:
+    """``merge_all``'s identity columns without the rest of the merge: one
+    winner reduction, then the winning replica's publisher and time per row
+    (the payload gather ``merge_select`` makes for them)."""
+    r = dags.publisher.shape[0]
+    mask = torch.ones((1, r), dtype=torch.bool, device=dags.publisher.device)
+    src, _ = gossip_kernel.gossip_winner(dags.publish_time, dags.publisher,
+                                         dags.approval_count, mask)
+    idx = src.long()
+    return UnionKeys(torch.gather(dags.publisher, 0, idx)[0],
+                     torch.gather(dags.publish_time, 0, idx)[0])
+
+
+def missing_vs_union(dags: DagState, union=None) -> torch.Tensor:
+    """(R,) rows each replica has not yet seen relative to the union view
+    (a ``DagState`` or its ``UnionKeys``) — 0 everywhere iff row visibility
+    has converged."""
     if union is None:
         union = merge_all(dags)
     have = (dags.publisher == union.publisher[None]) & (

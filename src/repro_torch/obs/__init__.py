@@ -46,6 +46,13 @@ def observe_round(
     rejects=None,              # (N, N) i32 cumulative digest rejections
     rejects_delta=None,        # (N, N) i32 rejections charged this round
     quarantine_after=0,
+    serve_counts=None,         # (N,) i32 cumulative requests served
+    serve_stale=None,          # () i32 max gated staleness at this admit (-1: none)
+    infer_nodes=None,          # (N,) bool nodes that admitted a batch now
+    infer_arg=None,            # (N,) i32 batch size admitted per node
+    serve_enq=None,            # (N,) i32 arrivals that found queue room
+    serve_queued=None,         # (N,) i32 queue length after admission
+    serve_stale_node=None,     # (N,) i32 gated staleness per node now
 ) -> tuple:
     """The collector step every obs-on loop runs after a round.
 
@@ -55,18 +62,27 @@ def observe_round(
     (``repro_torch.net.faults``) also pass their rejection state: the
     rejected and quarantined series sample from ``rejects``, and each link
     that rejected chunks this round appends one REJECT record (arg = its
-    rejections). With ``cfg.hist`` the histograms take the round's
-    publish->merge and publish->commit samples, and the chunk completions
-    when the bank state and ``old_have`` are passed. A pure read of its
-    inputs; returns ``(metrics, ring)``, both updated in place.
+    rejections). Serving runs (``repro_torch.net.serve``) pass their
+    counters: the requests_served and serve_staleness series sample
+    ``serve_counts`` and ``serve_stale``, and each node in ``infer_nodes``
+    appends one INFER record on the diagonal (arg = its batch size). With
+    ``cfg.hist`` the histograms take the round's publish->merge and
+    publish->commit samples, the chunk completions when the bank state and
+    ``old_have`` are passed, and each admitted request's queue wait and
+    staleness when an INFER batch passes ``infer_arg`` with the serve
+    arguments. A pure read of its inputs; returns ``(metrics, ring)``, both
+    updated in place.
     """
     t = torch.full((), t, dtype=torch.float32, device=new_dags.publisher.device)
     delta = _metrics_lib.rows_changed(new_dags, old_dags)
     metrics = _metrics_lib.update(metrics, cfg, t, new_dags, delta, bstate, digest,
-                                  rejects=rejects, quarantine_after=quarantine_after)
+                                  rejects=rejects, quarantine_after=quarantine_after,
+                                  serve_counts=serve_counts, serve_stale=serve_stale)
     if cfg.hist is not None:
         metrics.hist = _hist_lib.observe(cfg.hist, metrics.hist, t, old_dags, new_dags,
-                                         old_have=old_have, bstate=bstate)
+                                         old_have=old_have, bstate=bstate, serve_enq=serve_enq,
+                                         serve_admit=infer_arg, serve_queued=serve_queued,
+                                         serve_stale_node=serve_stale_node)
     if cfg.trace:
         if live_edges is not None:
             arg = delta[:, None].expand(live_edges.shape)
@@ -76,6 +92,11 @@ def observe_round(
         if rejects_delta is not None:
             ring = _trace_lib.append_edges(ring, t, KIND_REJECT, rejects_delta > 0,
                                            rejects_delta.float())
+        if infer_nodes is not None:
+            n = infer_nodes.shape[0]
+            eye = torch.eye(n, dtype=torch.bool, device=infer_nodes.device)
+            ring = _trace_lib.append_edges(ring, t, KIND_INFER, infer_nodes[:, None] & eye,
+                                           infer_arg[:, None].expand(n, n).float())
     return metrics, ring
 
 

@@ -31,8 +31,11 @@ Series (capacity S, one row per round; past S a sample is counted in
   ``rejected``        cumulative digest rejections (fault runs with the
                       bank; zeros otherwise);
   ``quarantined``     directed links quarantined (the same);
-  ``requests_served`` (S, N), ``serve_staleness`` (S,) serving (zeros and
-                      the -1 sentinel until it is ported).
+  ``requests_served`` (S, N) cumulative requests served per node and
+  ``serve_staleness`` (S,) the largest gated staleness a batch admitted at
+                      the sample's instant saw (serving runs,
+                      ``repro_torch.net.serve``; zeros and the -1 sentinel
+                      otherwise, and -1 at an instant that admitted none).
 
 The counters ``rounds``, ``cursor`` and ``dropped`` are host integers:
 every round is driven from the host, so the sample slot is known there and
@@ -140,14 +143,17 @@ def update(
     digest: Optional[torch.Tensor] = None,
     rejects: Optional[torch.Tensor] = None,  # (N, N) i32 cumulative rejections
     quarantine_after: int = 0,
+    serve_counts: Optional[torch.Tensor] = None,  # (N,) i32 cumulative requests served
+    serve_stale: Optional[torch.Tensor] = None,   # () i32 gated staleness at admit
 ) -> MetricsState:
     """Accumulate one round and sample one series row, in place; returns ``m``.
 
     ``rejects`` is the fault layer's cumulative rejection matrix (faulted
     bank runs only); without it the rejected and quarantined samples stay
-    zero. The serving series keep their initial values (zeros, and -1 for
-    serve_staleness), as the reference's do without serving state; their
-    arguments come with that layer (ROADMAP A.11).
+    zero. ``serve_counts`` and ``serve_stale`` are the serving layer's
+    cumulative served counters and the largest staleness a batch admitted at
+    this instant saw; without them the serving samples keep their initial
+    values (zeros, and -1 for serve_staleness), as the reference writes.
     """
     m.rounds += 1
     m.rows_merged += rows_delta
@@ -172,4 +178,8 @@ def update(
     if rejects is not None:
         m.rejected[slot] = rejects.sum(dtype=torch.int32)
         m.quarantined[slot] = (rejects >= quarantine_after).sum(dtype=torch.int32)
+    if serve_counts is not None:
+        m.requests_served[slot] = serve_counts
+    if serve_stale is not None:
+        m.serve_staleness[slot] = serve_stale
     return m

@@ -27,7 +27,8 @@ Record kinds (``arg`` per kind):
                       0.0 heal, src = dst = -1;
   ``KIND_REJECT``     digest rejections src -> dst this round (fault
                       injection with the bank); arg = rejections;
-  ``KIND_INFER``      an inference batch admitted (serving, not ported yet).
+  ``KIND_INFER``      node admitted an inference batch (serving, on the
+                      diagonal: src = dst); arg = the batch size.
 """
 from __future__ import annotations
 

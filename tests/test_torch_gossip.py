@@ -38,6 +38,7 @@ from repro_torch.kernels import gossip_merge as t_gm
 from repro_torch.kernels.delta_codec import DeltaCodec
 from repro_torch.net import gossip as t_gossip
 from repro_torch.net.bank import BankGossipConfig
+from repro_torch.net.serve import ServeConfig
 from repro_torch.net import replica as t_replica
 from repro_torch.net import topology as t_topo
 from repro_torch.obs import HistConfig, ObsConfig
@@ -497,20 +498,32 @@ def test_ideal_wire_equals_run_dagfl(impl):
 # ---------------------------------------------------------------------------
 
 
+UNPORTED = (NotImplementedError, "ROADMAP A.12")    # the mesh, alone or with serving
+TICKS_SERVE = (ValueError, "events")               # serving on the ticks engine
+
+
+# each case: (options, (the error, its message)); the ids stay option0..option8
 @pytest.mark.parametrize("option", [
-    dict(mesh=object()), dict(bank_gossip=BankGossipConfig(codec=DeltaCodec("int8")),
-                              engine="events", serve=object()),
-    dict(bank_gossip=BankGossipConfig(codec=DeltaCodec("int4")), faults=object(),
-         mesh=object()),
-    dict(bank_gossip=BankGossipConfig(), faults=object(), serve=object()),
-    dict(engine="events", obs=ObsConfig(), faults=object(), serve=object()),
-    dict(obs=ObsConfig(hist=HistConfig()), serve=object()), dict(faults=object(), mesh=object()),
-    dict(serve=object()),
-    dict(gossip=t_gossip.GossipConfig(engine="events"), faults=object(), mesh=object()),
+    (dict(mesh=object()), UNPORTED),
+    (dict(bank_gossip=BankGossipConfig(codec=DeltaCodec("int8")), engine="events",
+          serve=ServeConfig(), mesh=object()), UNPORTED),
+    (dict(bank_gossip=BankGossipConfig(codec=DeltaCodec("int4")), faults=object(),
+          mesh=object()), UNPORTED),
+    (dict(bank_gossip=BankGossipConfig(), faults=object(), serve=ServeConfig()), TICKS_SERVE),
+    (dict(engine="ticks", obs=ObsConfig(), faults=object(), serve=ServeConfig()), TICKS_SERVE),
+    (dict(obs=ObsConfig(hist=HistConfig()), serve=ServeConfig()), TICKS_SERVE),
+    (dict(faults=object(), mesh=object()), UNPORTED),
+    (dict(serve=ServeConfig()), TICKS_SERVE),
+    (dict(gossip=t_gossip.GossipConfig(engine="events"), faults=object(), mesh=object()),
+     UNPORTED),
 ])
 def test_unported_options_raise(option):
+    """A mesh raises the A.12 ``NotImplementedError``, with serving too;
+    serving on the ticks engine (the default) is a ``ValueError``: Poisson
+    arrivals have no tick grid. Both raise before any work."""
+    option, error = option
     task, nodes, gval, _ = t_exp.make_cnn_setup(num_nodes=2, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+    with pytest.raises(error[0], match=error[1]):
         t_sys.run_dagfl_gossip(task, nodes, t_exp.default_dagfl_config(2),
                                t_sys.SimConfig(iterations=2), gval, device="cpu", **option)
 
@@ -518,19 +531,23 @@ def test_unported_options_raise(option):
 def test_unported_network_parts_raise():
     dag = dag_to_t(_genesis(3))
     top = t_topo.ring(3)
-    for kw in (dict(mesh=object()),
-               dict(bank_cfg=BankGossipConfig(codec=DeltaCodec("int8")),
-                    cfg=t_gossip.GossipConfig(engine="events"), serve_cfg=object()),
-               dict(bank_cfg=BankGossipConfig(codec=DeltaCodec("topk")), faults_cfg=object(),
-                    mesh=object()),
-               dict(bank_cfg=BankGossipConfig(), faults_cfg=object(), serve_cfg=object()),
-               dict(obs_cfg=ObsConfig(), mesh=object()),
-               dict(faults_cfg=object(), mesh=object()), dict(serve_cfg=object()),
-               dict(cfg=t_gossip.GossipConfig(engine="events"), obs_cfg=ObsConfig(),
-                    serve_cfg=object()),
-               dict(cfg=t_gossip.GossipConfig(engine="events"), faults_cfg=object(),
-                    serve_cfg=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP A"):
+    events = t_gossip.GossipConfig(engine="events")
+    for kw, error in (
+            (dict(mesh=object()), UNPORTED),
+            (dict(bank_cfg=BankGossipConfig(codec=DeltaCodec("int8")), cfg=events,
+                  serve_cfg=ServeConfig(), mesh=object()), UNPORTED),
+            (dict(bank_cfg=BankGossipConfig(codec=DeltaCodec("topk")), faults_cfg=object(),
+                  mesh=object()), UNPORTED),
+            (dict(bank_cfg=BankGossipConfig(), faults_cfg=object(), serve_cfg=ServeConfig()),
+             TICKS_SERVE),
+            (dict(obs_cfg=ObsConfig(), mesh=object()), UNPORTED),
+            (dict(faults_cfg=object(), mesh=object()), UNPORTED),
+            (dict(serve_cfg=ServeConfig()), TICKS_SERVE),
+            (dict(cfg=events, obs_cfg=ObsConfig(), serve_cfg=ServeConfig(), mesh=object()),
+             UNPORTED),
+            (dict(cfg=events, faults_cfg=object(), serve_cfg=ServeConfig(), mesh=object()),
+             UNPORTED)):
+        with pytest.raises(error[0], match=error[1]):
             t_gossip.GossipNetwork(dag, None, top, **kw)
     with pytest.raises(ValueError, match="impl"):
         t_gossip.GossipNetwork(dag, None, top, t_gossip.GossipConfig(impl="pallas"))
