@@ -81,7 +81,15 @@ builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (into
    ``ITERATIONS`` and on ``LSTMTask()`` at ``LSTM_ITERATIONS`` (no hand
    kernel launched: their averages are plain PyTorch); Table II's two
    numbers per system and task, as ``iteration_delay_experiment`` computes
-   them;
+   them; and (2m) DAG-FL training over the model zoo: ``launch.train.run``
+   of qwen3-0.6b at full width in bf16, ``TRAIN_STEPS`` steps of
+   ``TRAIN_NODES`` nodes (each step: selection, Eq. (1) through
+   ``fedavg_gather``, a local SGD step of every node through ``Model.loss``
+   with attention's backward kernel, cross-validation scoring, the
+   frontier), twice with one seed and bitwise the same run, the launches a
+   step of the three kernels with every plain version made to raise, a
+   profiled step (the device's idle share, host and device ms a stage),
+   and node 0's parameters and the frontier through a checkpoint, bitwise;
 3. runs a small ``run_dagfl``, a small ``run_dagfl_gossip`` (a lossy ring
    with a partition), a small banked one (the same ring, starved) and the
    same with the int8 codec on the card and on the CPU with the same draws
@@ -104,6 +112,8 @@ builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (into
    bench LSTM through ``run_dagfl`` and the three baselines on the bench CNN
    and the bench LSTM (a lazy population): latencies, times, accuracies,
    Block FL's ``dropped`` and the ledger's integer columns equal,
+   parameters within 1e-4; (3m) reduced qwen3-0.6b (f32), two DAG-FL steps
+   of 4 nodes from the same weights and draws: the frontiers equal,
    parameters within 1e-4.
 
 Phase 1 holds the Eq.-(1) kernel at the paper's CNN (k = 2, 8, a NO_TX
@@ -148,7 +158,13 @@ holds the model distance (one launch: distances and, for the screen, the
 scores) against its plain version at its five cases, with each case's
 device kernels a call (profiled right after phase 1), the kernel's
 registers, shared memory and spills, its plan, and views with other row
-strides and start offsets bitwise the contiguous tensor); the digest check
+strides and start offsets bitwise the contiguous tensor; 1m holds
+attention's backward kernel against its plain version run in f32 at the
+training shape (B 4, S 128, qwen3-0.6b's heads, bf16), B 1 at 4,096,
+gemma-2b's MQA at hd 256 with a window and an odd f32 shape, each repeated
+bitwise, timed beside the plain version, the backward of
+``scaled_dot_product_attention`` and its bound, with the kernels'
+registers and shared memory); the digest check
 (bank table against one payload, bitwise) runs before phase 2c.
 
 Prints one JSON line of kernel numbers, the card's name and power limit, and
@@ -284,6 +300,14 @@ WKV_TOL, WKV_SCAN_TOL = 1e-5, 5e-4
 # itself lies 0.47-0.54 (0.069-0.073 on average) from the f32 forward
 # (scripts/torch_decode_gap.py --arch rwkv6-7b); the f32 twin keeps 2e-2
 RWKV_BF16_DECODE_ATOL, RWKV_BF16_DECODE_MEAN = 0.6, 0.08
+# phase 2m: launch/train.py's defaults (4 nodes of 4 sequences of 128
+# tokens), cut from its 50 steps to 10, run twice
+TRAIN_NODES, TRAIN_STEPS = 4, 10
+# phase 3m, card against CPU (reduced qwen3-0.6b, f32): a gradient entry
+# within 1e-4 of its leaf's largest (reads 1.6e-6 on an H100, PERF.md); the
+# parameters after two steps at lr 0.3 within 1e-6, ~8 f32 units at a norm
+# scale's 1.0 (read 1.8e-7; a leaf's change from init is 4.6e-3 to 0.23)
+TRAIN_GRAD_SHARE, TRAIN_PARAM_ATOL = 1e-4, 1e-6
 # exponentials a second on the special-function units: 16 a clock per SM
 # (CUDA C++ programming guide, compute capability 9.0), 132 SMs, 1.98 GHz
 PEAK_EXP_PER_S = 16 * 132 * 1.98e9
@@ -352,6 +376,21 @@ def bf16_ulp(x):
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
+def fedavg_error(rows, slots, weights, got, want):
+    """(within the bar, largest error) of the Eq.-(1) kernel's output
+    against its plain version on the same rows, slots and weights: in f32
+    within F32_TOL; in bf16 within one bf16 unit plus 1e-6 of sum_j |w_j x_j|
+    (both sides round an f32 sum once; sums a hair apart may round to
+    neighbours)."""
+    err = (got.float() - want.float()).abs()
+    if rows.dtype == torch.bfloat16:
+        picked = rows[slots.long().clamp(0, rows.shape[0] - 1)].float()
+        scale = (weights.abs()[:, None] * picked.abs()).sum(0)
+        tol = bf16_ulp(torch.maximum(got.float().abs(), want.float().abs())) + 1e-6 * scale
+        return bool((err <= tol).all()), float(err.max())
+    return float(err.max()) <= F32_TOL, float(err.max())
+
+
 def fedavg_case(fedavg, name, rows, k, n_notx, gen, reps=40):
     """One shape of the Eq.-(1) kernel: error against the plain version and times."""
     dev = rows.device
@@ -367,16 +406,8 @@ def fedavg_case(fedavg, name, rows, k, n_notx, gen, reps=40):
     want = fedavg.fedavg_gather_plain(*sets[0])
     torch.cuda.synchronize()
     check(got.shape == (P,) and got.dtype == rows.dtype, f"{name}: output {got.shape} {got.dtype}")
-    err = (got.float() - want.float()).abs()
-    max_abs_err = float(err.max())
-    if rows.dtype == torch.bfloat16:
-        # both sides round an f32 sum once; sums a hair apart may round to neighbours
-        picked = rows[sets[0][1].long()].float()
-        scale = (sets[0][2].abs()[:, None] * picked.abs()).sum(0)
-        tol = bf16_ulp(torch.maximum(got.float().abs(), want.float().abs())) + 1e-6 * scale
-        check(bool((err <= tol).all()), f"{name}: off by more than 1 bf16 ulp")
-    else:
-        check(max_abs_err <= F32_TOL, f"{name}: max abs err {max_abs_err} > {F32_TOL}")
+    ok, max_abs_err = fedavg_error(rows, sets[0][1], sets[0][2], got, want)
+    check(ok, f"{name}: kernel off its plain version by {max_abs_err}, past its bar")
 
     library = lambda r, s, w: w.to(r.dtype) @ r[s.long()]     # yardstick only
     ms = device_ms(fedavg.fedavg_gather, sets)
@@ -3973,6 +4004,367 @@ def tree_to(tree, device):
     return tree.to(device)
 
 
+# ---------------------------------------------------------------------------
+# training: attention's backward kernel (1m), DAG-FL training of qwen3-0.6b at
+# full width (2m), card vs CPU (3m)
+# ---------------------------------------------------------------------------
+
+
+def bwd_tile_pairs(S, window, tile=32):
+    """(query tile, key tile) pairs that csrc/flash_attention_bwd.cu visits a
+    head: a query tile walks the key tiles from its window's first to its
+    own diagonal."""
+    pairs = 0
+    for q0 in range(0, S, tile):
+        first = max(0, q0 - window + 1) // tile * tile if window else 0
+        pairs += (min(S, q0 + tile) - 1) // tile - first // tile + 1
+    return pairs
+
+
+def attention_bwd_resources(fa, cuda_build):
+    """Registers, spills and stack of each backward kernel from nvcc's
+    -Xptxas=-v report, and the dynamic shared memory its launcher asks for
+    (``flash_attention_bwd_smem``, which asks the CUDA source)."""
+    import re
+
+    log = cuda_build.library_path(cuda_build.CSRC / "flash_attention_bwd.cu").with_suffix(".log")
+    out, name = {}, None
+    for line in log.read_text().splitlines():
+        entry = re.search(r"Compiling entry function '\S*?\d(bwd_[a-z]+_kernel)I(f|13__nv_bfloat16)"
+                          r"Li(\d+)E", line)
+        if entry:
+            name = f"{entry.group(1)}<{'f32' if entry.group(2) == 'f' else 'bf16'}, " \
+                   f"{entry.group(3)}>"
+            out[name] = {}
+        elif name and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                                      r"(\d+) bytes spill loads", line)):
+            out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out[name]["registers"] = int(m.group(1))
+    for kernel in out:
+        smem = fa.flash_attention_bwd_smem(int(kernel.split(", ")[1][:-1]))
+        out[kernel]["dynamic_smem"] = smem["dq" if kernel.startswith("bwd_dq") else "dkdv"]
+    check(len(out) == 12, f"expected 12 backward kernels in the build log, found {sorted(out)}")
+    check(all(r.get("spill_stores", 0) == 0 for r in out.values()),
+          f"a backward kernel spills: {out}")
+    return out
+
+
+def attention_bwd_case(fa, name, B, H, KV, S, hd, dtype, window, gen, reps):
+    """One shape of the backward kernel on the model's layout: error against
+    the plain version run in f32 on the same inputs (within ATTN_TOL of each
+    gradient entry's sum of absolute terms, plus one bf16 unit in bf16), the
+    same bits twice, then times of the kernel, the plain version on the
+    inputs as they are, the backward of ``scaled_dot_product_attention``
+    (causal, or windowed through a boolean mask) on the same inputs, and the
+    bound: five products of 2 hd operations a visible pair, q, k, v, do read
+    and dq, dk, dv written once."""
+    F = torch.nn.functional
+
+    def draw(heads, scale=1.0):
+        return (torch.randn((B, S, heads, hd), generator=gen, device="cuda") * scale).to(
+            dtype).transpose(1, 2)
+
+    q, k, v, do = draw(H, 0.5), draw(KV, 0.5), draw(KV), draw(H)
+    got, again = fa.flash_attention_bwd(q, k, v, do, window), \
+        fa.flash_attention_bwd(q, k, v, do, window)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"backward {name}: two calls differ")
+    args32 = [t.float() for t in (q, k, v, do)]
+    want = fa.flash_attention_bwd_plain(*args32, window)
+    scale = fa.flash_attention_bwd_scale(*args32, window)
+    errs, ratio = 0.0, 0.0
+    for g, w, m in zip(got, want, scale):
+        err = (g.float() - w).abs()
+        tol = ATTN_TOL * m + (bf16_ulp(w) if dtype == torch.bfloat16 else 0.0)
+        check(bool((err <= tol).all()), f"backward {name}: kernel off its plain version by "
+              f"{float((err / tol).max())} of its bar")
+        errs, ratio = max(errs, float(err.max())), max(ratio, float((err / tol).max()))
+    del got, again, want, scale, args32
+    torch.cuda.empty_cache()
+    ms = device_ms(fa.flash_attention_bwd, [(q, k, v, do, window)] * reps, warmup=1)
+    plain_ms = device_ms(fa.flash_attention_bwd_plain, [(q, k, v, do, window)] * 2, warmup=1)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    if window:                         # the same function through an (S, S) boolean mask
+        i, j = torch.arange(S, device="cuda")[:, None], torch.arange(S, device="cuda")[None, :]
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=(j <= i) & (j > i - window),
+                                             enable_gqa=True)
+    else:
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
+    library_ms = device_ms(lambda o, d: torch.autograd.grad(o, leaves, d, retain_graph=True),
+                           [(out, do)] * reps, warmup=1)
+    del out, leaves
+    rows = torch.arange(S, dtype=torch.float64)
+    pairs = float(torch.clamp(rows + 1, max=window).sum() if window else (rows + 1).sum())
+    flops = 10.0 * B * H * pairs * hd
+    nbytes = (3 * B * H * S * hd + 4 * B * KV * S * hd) * q.element_size()
+    bound_ms, bound_by = attention_bound(flops, nbytes, dtype)
+    issued = 9 * 2.0 * 32 * 32 * hd * bwd_tile_pairs(S, window) * B * H
+    return {"case": name, "B": B, "H": H, "KV": KV, "S": S, "hd": hd, "window": window,
+            "dtype": str(dtype).removeprefix("torch."), "max_abs_err": errs,
+            "max_err_over_tol": ratio, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "tflops_achieved": flops / ms / 1e9,
+            "ops_issued": issued, "issued_over_algorithm": issued / flops, "reps": reps}
+
+
+def phase_attention_bwd_kernel(fa, cuda_build):
+    """Phase 1m: the backward kernel against its plain version run in f32,
+    at the training shape (qwen3-0.6b, 4 sequences of 128, bf16), B 1 at
+    4,096, gemma-2b's MQA at hd 256 with a window, and an odd f32 shape;
+    with the kernels' registers and shared memory. And B.9's forward at the
+    training shape, as phase 1i holds it at the serving shapes."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(30)
+    forward = [prefill_case(fa, "train_main", 4, 16, 8, 128, 128, torch.bfloat16, 0, gen,
+                            reps=20)]
+    cases = [
+        attention_bwd_case(fa, "main", 4, 16, 8, 128, 128, torch.bfloat16, 0, gen, reps=20),
+        attention_bwd_case(fa, "long_4k", 1, 16, 8, 4096, 128, torch.bfloat16, 0, gen, reps=2),
+        attention_bwd_case(fa, "mqa_hd256_window", 1, 8, 1, 2048, 256, torch.bfloat16, 512,
+                           gen, reps=3),
+        attention_bwd_case(fa, "odd_f32", 1, 10, 2, 333, 64, torch.float32, 0, gen, reps=10),
+    ]
+    torch.cuda.empty_cache()
+    try:
+        fa.flash_attention_bwd(*(torch.zeros((1, 4, 8, 48), device="cuda"),) * 4)
+        check(False, "a head dim the backward kernel does not take was not refused")
+    except ValueError:
+        pass
+    return {"cases": cases, "forward_cases": forward,
+            "resources": attention_bwd_resources(fa, cuda_build)}
+
+
+@contextlib.contextmanager
+def no_plain_versions():
+    """Make the plain versions of the training path's kernels raise while
+    the block runs: the path on the card must launch the kernels."""
+    from repro_torch.kernels import fedavg, flash_attention
+
+    saved = [(mod, name, getattr(mod, name)) for mod, name in (
+        (flash_attention, "flash_attention_plain"), (flash_attention, "flash_attention_bwd_plain"),
+        (fedavg, "fedavg_gather_plain"))]
+
+    def refuse(*args, **kwargs):
+        raise SmokeFailure("a plain version ran on the card's training path")
+
+    for mod, name, _ in saved:
+        setattr(mod, name, refuse)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def stage_breakdown(prof, prefix="repro_torch.fl_step."):
+    """Host ms of each profiler range ``prefix<stage>``, and on the device
+    the span its kernels covered (the range's mirrored annotation) and the
+    busy ms of the kernels inside that span."""
+    spans = sorted(device_spans(prof))
+    out = {}
+    for e in prof.events():
+        if not e.name.startswith(prefix):
+            continue
+        entry = out.setdefault(e.name[len(prefix):], {})
+        start, end = e.time_range.start, e.time_range.end
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy, cur = 0.0, start
+            for s0, s1, _ in spans:
+                lo, hi = max(s0, cur), min(s1, end)
+                if hi > lo:
+                    busy += hi - lo
+                    cur = hi
+            entry["device_span_ms"] = (end - start) / 1e3
+            entry["device_busy_ms"] = busy / 1e3
+        else:
+            entry["host_ms"] = (end - start) / 1e3
+    return out
+
+
+def phase_train_path(cuda_build):
+    """Phase 2m: ``launch.train.run`` of qwen3-0.6b at full width in bf16,
+    TRAIN_STEPS DAG-FL steps of TRAIN_NODES nodes (4 sequences of 128 tokens
+    a node, launch/train.py's defaults), twice with one seed: the two runs bitwise
+    equal, every metric finite, every weight matrix moved off its init; s a
+    step after the first, peak memory, launches a step of the three kernels (no plain
+    version runs); one more step profiled (the device's idle share), built
+    by ``make_trainer`` with run's own settings; Eq. (1) of the embedding and
+    of a layer's leaf through ``aggregate`` held against the plain version on
+    the same rows, slots and weights (phase 1's bar); the frontier and node
+    0's parameters round-tripped through ``save_pytree``/``load_pytree``
+    bitwise. At lr 3e-3 a bf16 norm scale of 1.0 moves only where the step
+    passes half a bf16 unit, so the norms are reported, the weight matrices
+    required to move."""
+    import tempfile
+
+    from repro_torch.checkpoint import load_pytree, save_pytree
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import fedavg
+    from repro_torch.launch.train import make_trainer, next_batch, run
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+    from repro_torch.sharding import fl_step
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = get_arch("qwen3-0.6b")
+    L, nodes, steps = cfg.num_layers, TRAIN_NODES, TRAIN_STEPS
+    settings = {"nodes": nodes, "batch_per_node": 4, "seq_len": 128, "lr": 3e-3, "seed": 0}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
+    cuda_build.LAUNCHES.clear()
+    with no_plain_versions():
+        first, first_s = timed(run, cfg, steps=steps, log_every=steps, **settings)
+    launches = dict(cuda_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    leaves = len(tree_leaves(first.stacked))
+    per_step = {name: launches.get(name, 0) / steps for name in
+                ("flash_attention", "flash_attention_bwd", "fedavg_gather")}
+    # a node's forward, its checkpointed recompute, and the scoring forward
+    expected = {"flash_attention": 3 * nodes * L, "flash_attention_bwd": nodes * L,
+                "fedavg_gather": nodes * leaves}
+    check(per_step == expected, f"2m launches a step {per_step}, expected {expected}")
+    second, second_s = timed(run, cfg, steps=steps, log_every=steps, **settings)
+    check(all(torch.equal(a, b) for a, b in zip(tree_leaves(first.stacked),
+                                                 tree_leaves(second.stacked))),
+          "2m: two runs with one seed give other parameters")
+    check(all(torch.equal(a, b) for a, b in zip(first.frontier, second.frontier)),
+          "2m: two runs with one seed give other frontiers")
+    check(first.history == [dict(h, s=f["s"]) for h, f in zip(second.history, first.history)],
+          "2m: two runs with one seed give other metrics")
+    check(all(np.isfinite(v) for h in first.history for v in h.values()),
+          f"2m: a metric is not finite: {first.history}")
+    check(all(bool(torch.isfinite(p).all()) for p in tree_leaves(first.stacked)),
+          "2m: a parameter is not finite")
+    del second
+    trainer = make_trainer(cfg, device="cuda", **settings)
+    init0 = dict(param_leaves(trainer.model.init(settings["seed"], device="cuda")))
+    node0 = tree_map(lambda a: a[0], first.stacked)
+    # every weight matrix moves; a norm scale of 1.0 moves only where lr * g
+    # passes half a bf16 unit of 1.0 (2^-8), so those are counted, not required
+    norms = ("ln1", "ln2", "final_norm", "q_norm", "k_norm")
+    moved = {"/".join(path): not torch.equal(init0[path], p) for path, p in param_leaves(node0)}
+    stuck = [name for name, m in moved.items() if not m and not set(name.split("/")) & set(norms)]
+    check(not stuck, f"2m: node 0's {stuck} did not move")
+    del init0
+
+    # one more step, profiled: run's step, data and validation batch
+    batch = next_batch(trainer.samplers, "cuda")
+    trainer.step(first.stacked, first.frontier, batch, trainer.val_batch, 1)     # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        out = trainer.step(first.stacked, first.frontier, batch, trainer.val_batch, 2)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t)
+    profiled = dict(trace_summary(prof, wall_ms), stages=stage_breakdown(prof))
+    del out, prof, batch
+
+    # Eq. (1) at the path's own shapes: the embedding's and a layer leaf's
+    # (N, P) bf16 rows through aggregate's kernel route, against the plain
+    # version on the same rows, slots and weights (the next step's draw)
+    dcfg = trainer.dcfg
+    sel = fl_step.select_peers(first.frontier, dcfg.alpha, dcfg.k, dcfg.tau_max,
+                               settings["seed"] * 7 + steps)
+    picked = {"embed": first.stacked["embed"], "layers/mlp/wi": first.stacked["layers"]["mlp"]["wi"]}
+    agg = fl_step.aggregate(sel, picked)
+    eq1 = {}
+    for name, leaf in picked.items():
+        rows, worst = leaf.reshape(nodes, -1), 0.0
+        for i in range(nodes):
+            want = fedavg.fedavg_gather_plain(rows, sel.slots[i], sel.weights[i])
+            ok, err = fedavg_error(rows, sel.slots[i], sel.weights[i], agg[name][i].reshape(-1),
+                                   want)
+            check(ok, f"2m: Eq. (1) of {name} for node {i} off its plain version by {err}")
+            worst = max(worst, err)
+            del want
+        eq1[name] = {"P": rows.shape[1], "dtype": str(leaf.dtype), "max_abs_err": worst}
+    eq1["slots"], eq1["weights"] = sel.slots.tolist(), sel.weights.tolist()
+    del agg, picked, sel
+    torch.cuda.empty_cache()
+
+    # the frontier and node 0's parameters through a checkpoint
+    tree = {"params": node0, "frontier": first.frontier}
+    template = {"params": tree_map(torch.empty_like, node0),
+                "frontier": fl_step.Frontier(*map(torch.empty_like, first.frontier))}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        t = time.perf_counter()
+        save_pytree(str(Path(tmp) / "node0"), tree, meta={"arch": cfg.name, "steps": steps})
+        back = load_pytree(str(Path(tmp) / "node0"), template)
+        ckpt_s = time.perf_counter() - t
+        ckpt_bytes = (Path(tmp) / "node0.npz").stat().st_size
+    check(all(torch.equal(a, b) and a.dtype == b.dtype and a.device == b.device
+              for a, b in zip(tree_leaves(back["params"]), tree_leaves(node0))),
+          "2m: node 0's parameters changed through the checkpoint")
+    check(all(torch.equal(a, b) for a, b in zip(back["frontier"], first.frontier)),
+          "2m: the frontier changed through the checkpoint")
+    secs = [h["s"] for h in first.history]
+    return {"arch": cfg.name, "dtype": cfg.dtype, "nodes": nodes, "steps": steps,
+            "batch_per_node": 4, "seq_len": 128,
+            "params_per_node": sum(p.numel() for p in tree_leaves(node0)),
+            "run_s": first_s, "repeat_run_s": second_s, "step_s": secs,
+            "s_per_step_after_first": sum(secs[1:]) / len(secs[1:]),
+            "tokens_per_s_after_first": nodes * 4 * 128 * len(secs[1:]) / sum(secs[1:]),
+            "peak_memory_bytes": peak, "allocated_before_bytes": held_before,
+            "launches": launches, "launches_per_step": per_step, "leaves_moved": moved,
+            "final_metrics": {k: v for k, v in first.history[-1].items() if k != "s"},
+            "final_scores": first.frontier.scores.tolist(),
+            "profiled_step": profiled, "eq1_against_plain": eq1,
+            "checkpoint_bytes": ckpt_bytes, "checkpoint_s": ckpt_s}
+
+
+def phase_small_train_agreement(cuda_build):
+    """Phase 3m: reduced qwen3-0.6b (f32) on the card and on the CPU from the
+    same weights. Node 0's loss gradient on one batch: each leaf within
+    TRAIN_GRAD_SHARE of its largest CPU entry, and through the backward
+    kernel once a layer. Two DAG-FL steps of 4 nodes with the same draws
+    (numpy): the frontiers equal (scores, counters, times), every
+    parameter within TRAIN_PARAM_ATOL."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import TokenSampler
+    from repro_torch.launch.train import init_stacked, run
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import tree_leaves, tree_map, value_and_grad
+
+    cfg = get_arch("qwen3-0.6b").reduced()
+    model = build_model(cfg)
+    cpu_params = init_stacked(model, 4, 0, torch.device("cpu"))
+    toks = torch.from_numpy(TokenSampler(cfg.vocab_size, 4, 64, seed=0).next()["tokens"])
+    grads, losses = {}, {}
+    for device in ("cuda", "cpu"):
+        node0 = tree_map(lambda p: p[0].to(device), cpu_params)
+        batch = {"tokens": toks.to(device), "labels": toks.to(device)}
+        before = cuda_build.LAUNCHES["flash_attention_bwd"]
+        (total, _), grads[device] = value_and_grad(model.loss, node0, batch, has_aux=True)
+        losses[device] = float(total.detach())
+        if device == "cuda":
+            check(cuda_build.LAUNCHES["flash_attention_bwd"] - before == cfg.num_layers,
+                  "3m: the card's gradient did not go through the backward kernel once a layer")
+    grad_share = {}
+    for (path, g), c in zip(param_leaves(grads["cuda"]), tree_leaves(grads["cpu"])):
+        grad_share["/".join(path)] = float((g.cpu() - c).abs().max() / c.abs().max())
+    check(max(grad_share.values()) <= TRAIN_GRAD_SHARE,
+          f"3m: card and CPU gradients differ past {TRAIN_GRAD_SHARE} of a leaf: {grad_share}")
+    draws = [torch.from_numpy(np.random.default_rng(31 + s).random((4, 4), dtype=np.float32)
+                              * np.float32(0.999) + np.float32(1e-9)) for s in range(2)]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        runs[device] = run(cfg, steps=2, seq_len=64, lr=0.3, device=device,
+                           params=tree_map(lambda p: p.to(device), cpu_params),
+                           draws=lambda step: draws[step], log_every=2)
+    card, cpu = runs["cuda"], runs["cpu"]
+    worst = max(float((a.cpu() - b).abs().max())
+                for a, b in zip(tree_leaves(card.stacked), tree_leaves(cpu.stacked)))
+    check(worst <= TRAIN_PARAM_ATOL, f"3m: card and CPU parameters differ by {worst}")
+    for name, a, b in zip(card.frontier._fields, card.frontier, cpu.frontier):
+        check(torch.equal(a.cpu(), b), f"3m: the frontiers' {name} differ: {a} / {b}")
+    return {"grad_max_diff_over_leaf_max": grad_share, "loss": losses,
+            "steps": 2, "nodes": 4, "params_max_abs_diff": worst,
+            "mean_val_acc": [h["mean_val_acc"] for h in card.history],
+            "cpu_mean_val_acc": [h["mean_val_acc"] for h in cpu.history]}
+
+
 def nvidia_smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4066,6 +4458,14 @@ def main() -> int:
         t = time.perf_counter()
         print(json.dumps({"small_serve_agreement": phase_small_serve_agreement()}))
         print(f"[phase 3l] inference serving, card against CPU: {time.perf_counter() - t:.1f} s")
+        # training, also before the telemetry phases: 2m profiles a step
+        t = time.perf_counter()
+        train_path = phase_train_path(cuda_build)
+        print(json.dumps({"train_main_path": train_path}))
+        print(f"[phase 2m] qwen3-0.6b DAG-FL training: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        print(json.dumps({"small_train_agreement": phase_small_train_agreement(cuda_build)}))
+        print(f"[phase 3m] DAG-FL training, card against CPU: {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
         obs_paths = phase_obs_main_path(cuda_build, tip_sims["e_table1"]["runs"][0])
         print(json.dumps({"obs_main_path": obs_paths}))
@@ -4158,6 +4558,10 @@ def main() -> int:
         wkv_cases, wkv_scan_cases = wkv_phase["chunked"], wkv_phase["scan"]
         print(json.dumps({"wkv_cases": wkv_phase}))
         print(f"[phase 1j] wkv kernel vs plain: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        bwd_phase = phase_attention_bwd_kernel(flash_attention, cuda_build)
+        print(json.dumps({"attention_bwd_cases": bwd_phase}))
+        print(f"[phase 1m] attention backward vs plain: {time.perf_counter() - t:.1f} s")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4329,6 +4733,22 @@ def main() -> int:
         "bound_ms": scan_main["bound_ms"],
         "bound_by": scan_main["bound_by"],
         "library_ms": None,          # no single PyTorch call computes the recurrence
+    })
+    bwd_main = next(c for c in bwd_phase["cases"] if c["case"] == "main")
+    kernels.append({
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        # replaces no Pallas kernel: the reference differentiates chunked_sdpa by XLA autodiff
+        "replaces": "none (src/repro/models/attention.py:112, chunked_sdpa, XLA autodiff)",
+        "launches": train_path["launches"].get("flash_attention_bwd", 0),
+        "max_abs_err": max(c["max_abs_err"] for c in bwd_phase["cases"]),
+        "ms": bwd_main["ms"],
+        "kernel_ms": bwd_main["ms"],
+        "plain_ms": bwd_main["plain_ms"],
+        "bound_ms": bwd_main["bound_ms"],
+        "bound_by": bwd_main["bound_by"],
+        "library_ms": bwd_main["library_ms"],   # scaled_dot_product_attention's backward
     })
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

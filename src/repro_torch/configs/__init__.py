@@ -1,5 +1,12 @@
 """Configs of the port: the model zoo, the DAG-FL deployment and the paper tasks."""
-from repro_torch.configs.base import DagFLConfig, ModelConfig, SHAPES, ShapeSpec
+from repro_torch.configs.base import (
+    SHAPES,
+    DagFLConfig,
+    ModelConfig,
+    RunConfig,
+    ShapeSpec,
+    TrainConfig,
+)
 from repro_torch.configs.registry import (
     ARCHS,
     POD_GRANULARITY,
@@ -13,7 +20,9 @@ __all__ = [
     "DagFLConfig",
     "ModelConfig",
     "SHAPES",
+    "RunConfig",
     "ShapeSpec",
+    "TrainConfig",
     "ARCHS",
     "POD_GRANULARITY",
     "get_arch",

@@ -3,12 +3,13 @@
 The port's copy of ``repro.configs.base``: ``ModelConfig`` with its derived
 sizes and ``reduced()`` (the CPU smoke-test variant: 2 layers, d_model <=
 512, <= 4 experts), the model-zoo input shapes ``ShapeSpec``/``SHAPES``, and
-``DagFLConfig``. Every class is a frozen dataclass, so configs hash and
+``DagFLConfig``, and the training hyperparameters ``TrainConfig`` and
+``RunConfig``. Every class is a frozen dataclass, so configs hash and
 compare.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 from typing import Optional, Tuple
 
 # ---------------------------------------------------------------------------
@@ -275,3 +276,28 @@ class DagFLConfig:
         d0 = self.train_density * self.minibatch_size_bits * self.beta / f
         d1 = self.validate_density * self.valset_size_bits * self.alpha / f
         return d0 + d1
+
+
+# ---------------------------------------------------------------------------
+# Training / serving hyperparams
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 0.002
+    momentum: float = 0.9
+    optimizer: str = "sgd"          # "sgd" | "momentum" | "adam"
+    weight_decay: float = 0.0
+    grad_clip: float = 1.0
+    remat: bool = True
+    seed: int = 0
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    shape: ShapeSpec
+    train: TrainConfig = field(default_factory=TrainConfig)
+    dagfl: DagFLConfig = field(default_factory=DagFLConfig)
+    fl_mode: str = "node"           # "node" (data-axis FL) | "pod" | "off"

@@ -71,13 +71,14 @@ def as_index(x, device) -> torch.Tensor:
 
 
 def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``jax.lax.top_k`` of a vector: the k largest, ties to the lower index.
+    """``jax.lax.top_k`` over the last axis: the k largest, ties to the lower
+    index.
 
     ``torch.topk`` orders tied values arbitrarily; validation accuracies are
     multiples of 1/val_size, so ties are the normal case.
     """
     values, idx = torch.sort(x, descending=True, stable=True)
-    return values[:k], idx[:k]
+    return values[..., :k], idx[..., :k]
 
 
 def publish_at(

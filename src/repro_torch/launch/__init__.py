@@ -1,1 +1,2 @@
-"""Launchers of the port: the slot server (``launch.serve``)."""
+"""Launchers of the port: the slot server (``launch.serve``) and the DAG-FL
+training entry point (``launch.train``)."""

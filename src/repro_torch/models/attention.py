@@ -9,7 +9,9 @@ The port of ``repro.models.attention``. Three entry points:
 Layouts: activations (B, S, D); q/k/v (B, S, H, hd); caches (B, S, KV, hd).
 Attention itself goes through ``kernels.flash_attention``: ``flash_attention``
 (the (B, S, H, hd) tensors passed permuted, read in place by the kernel) and
-``decode_attention``. ``sdpa`` and ``chunked_sdpa`` keep the reference's plain
+``decode_attention``; while autograd records (training), ``attn_forward``
+takes ``flash_attention_train``, the same forward with the backward kernel
+behind it. ``sdpa`` and ``chunked_sdpa`` keep the reference's plain
 functions in this layout, for tests and for callers without a card.
 
 The cache is written in place (the reference returns a new one): a decode
@@ -31,6 +33,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention,
     flash_attention_block_plain,
     flash_attention_plain,
+    flash_attention_train,
 )
 from repro_torch.models.layers import apply_rope, dense_init, rms_head_norm
 
@@ -130,7 +133,10 @@ def attn_forward(
     k = apply_rope(k, positions, cfg.rope_theta)
 
     window = _window(cfg)
-    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), window)
+    attend = flash_attention
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        attend = flash_attention_train
+    out = attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), window)
     out = out.transpose(1, 2).reshape(B, S, -1) @ params["wo"]
 
     cache = None

@@ -15,6 +15,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -46,6 +47,38 @@ def dense_init(gen: torch.Generator, fan_in: int, fan_out: int, dtype, device, l
 
 def embed_init(gen: torch.Generator, vocab: int, d: int, dtype, device) -> torch.Tensor:
     return truncated_normal(gen, (vocab, d), device).mul_(0.02).to(dtype)
+
+
+class _EmbedLookup(torch.autograd.Function):
+    """``table[tokens]`` with a gradient that repeats bit for bit: autograd's
+    own (``index_put_`` with accumulation) sums repeated tokens in an order
+    that changes from call to call on the CPU, and ``index_add_``, serial on
+    the CPU, uses float atomics on the card. So the CPU sums by
+    ``index_add_`` and the card by the sort-based ``index_put_``."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.shape = table.shape
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (tokens,) = ctx.saved_tensors
+        out = torch.zeros(ctx.shape, dtype=grad.dtype, device=grad.device)
+        if grad.device.type == "cpu":
+            out.index_add_(0, tokens.reshape(-1), grad.reshape(-1, ctx.shape[-1]))
+        else:
+            out.index_put_((tokens,), grad, accumulate=True)
+        return out, None
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows ``tokens`` of ``table``; differentiable, the same gradient on
+    every call (``_EmbedLookup``), where autograd records."""
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _EmbedLookup.apply(table, tokens)
+    return table[tokens]
 
 
 # ---------------------------------------------------------------------------
@@ -135,6 +168,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 # ---------------------------------------------------------------------------
 # losses
 # ---------------------------------------------------------------------------
+
+
+def xla_mean(x: torch.Tensor, dims=None) -> torch.Tensor:
+    """``jnp.mean`` as XLA takes it: the f32 sum times the f32 reciprocal of
+    the count (``torch.mean`` divides, which differs in the last bit where
+    the count is not a power of two)."""
+    dims = tuple(range(x.dim())) if dims is None else tuple(dims)
+    count = 1
+    for d in dims:
+        count *= x.shape[d]
+    return x.sum(dim=dims) * float(np.float32(1.0) / np.float32(count))
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, mask=None) -> torch.Tensor:

@@ -22,9 +22,18 @@ scans them).
   cm_shift ``(L, B, d)`` in the model's dtype, wkv ``(L, B, H, hd, hd)``
   f32), with no length; ``decode_step`` writes it in place.
 
-The other families raise ``NotImplementedError`` naming their ROADMAP item,
-and so do ``loss`` and ``train_step``, which need ``optim/`` and a backward
-kernel.
+Training (dense only): ``loss`` (next-token cross entropy, the last
+position dropped, plus ``router_aux_loss`` times the aux loss) and
+``train_step`` (autograd's gradient, then ``optim``'s update). While
+autograd records, ``forward`` runs each layer under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the
+scanned layer) on its own unbound parameter views, and every attention
+layer through ``flash_attention_train`` (the prefill kernel forward, its
+recompute, and the backward kernel); the embedding's gradient sums repeated
+tokens in a fixed order (``layers.embed_lookup``), so a step repeats bit for
+bit on either device. RWKV's ``loss`` and ``train_step``
+raise ``NotImplementedError`` naming their ROADMAP item (a WKV backward
+kernel); the other families raise it when built.
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -42,11 +52,14 @@ from repro_torch.models.attention import KVCache
 from repro_torch.models.layers import (
     dense_init,
     embed_init,
+    embed_lookup,
     mlp_apply,
     mlp_init,
     norm_apply,
     norm_init,
+    xla_mean,
 )
+from repro_torch.optim.optimizers import make_optimizer, tree_leaves, value_and_grad
 
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -56,16 +69,24 @@ def unported_reason(cfg: ModelConfig):
     if cfg.family == "rwkv":
         return None
     if cfg.family == "hybrid":
-        return "the hybrid family (Mamba2 + shared attention) waits for ROADMAP A.13, part 2"
+        return "the hybrid family (Mamba2 + shared attention) waits for ROADMAP A.13, part 4"
     if cfg.is_moe():
-        return "the MoE family waits for ROADMAP A.13, part 2"
+        return "the MoE family (with moe_shard_map) waits for ROADMAP A.13, part 4"
     if cfg.attention == "mla":
-        return "MLA attention waits for ROADMAP A.13, part 2"
+        return "MLA attention waits for ROADMAP A.13, part 4"
     if cfg.frontend_tokens or cfg.family in ("audio", "vlm"):
-        return "audio and vision frontends wait for ROADMAP A.13, part 2"
+        return "audio and vision frontends wait for ROADMAP A.13, part 4"
     if cfg.attention not in ("full", "sliding_window"):
         return f"attention {cfg.attention!r} is not ported"
     return None
+
+
+def train_unported_reason(cfg: ModelConfig):
+    """Why the port cannot train ``cfg`` yet (its ROADMAP item), or None."""
+    reason = unported_reason(cfg)
+    if reason is None and cfg.family == "rwkv":
+        return "RWKV training needs a backward kernel of the WKV: ROADMAP A.13, part 3"
+    return reason
 
 
 def _tf_block_apply(cfg: ModelConfig, p: dict, x, positions, mode: str, cache, cache_len: int):
@@ -86,6 +107,28 @@ def _layer(tree, i: int):
     if isinstance(tree, dict):
         return {name: _layer(sub, i) for name, sub in tree.items()}
     return tree[i]
+
+
+def _unbind_layers(tree, layers: int) -> list:
+    """Stacked ``(L, ...)`` parameters as L per-layer trees of ``unbind``
+    views: autograd then stacks the L gradients once, where indexing
+    (``_layer``) would add L full-size zero-padded gradients."""
+    if isinstance(tree, dict):
+        subs = {name: _unbind_layers(sub, layers) for name, sub in tree.items()}
+        return [{name: sub[i] for name, sub in subs.items()} for i in range(layers)]
+    return tree.unbind(0)
+
+
+def _train_block(cfg: ModelConfig, p: dict, x, positions):
+    return _tf_block_apply(cfg, p, x, positions, "train", None, 0)[0]
+
+
+def _mean_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy, the mean XLA's (``xla_mean``)."""
+    logits = logits.float()
+    nll = torch.logsumexp(logits, dim=-1) - torch.gather(
+        logits, -1, labels.long().unsqueeze(-1)).squeeze(-1)
+    return xla_mean(nll)
 
 
 @dataclass(frozen=True)
@@ -129,7 +172,7 @@ class Model:
 
     # ---------------- embeddings / head -----------------------------------
     def _embed(self, params, tokens):
-        return params["embed"][tokens]
+        return embed_lookup(params["embed"], tokens)
 
     def _head(self, params, x):
         x = norm_apply(self.cfg.norm, params["final_norm"], x)
@@ -146,6 +189,13 @@ class Model:
     def _run_tf(self, params, x, positions, mode, cache, cache_len):
         """Returns (x, new cache or None, aux loss 0)."""
         layers = params["layers"]
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if mode == "train" and torch.is_grad_enabled() and (
+                x.requires_grad or any(t.requires_grad for t in tree_leaves(layers))):
+            for p in _unbind_layers(layers, self.cfg.num_layers):
+                x = checkpoint(_train_block, self.cfg, p, x, positions, use_reentrant=False,
+                               preserve_rng_state=False)
+            return x, None, aux
         caches = []
         for i in range(self.cfg.num_layers):
             lc = None
@@ -163,7 +213,7 @@ class Model:
             new_cache = {"prefix": [], "stack": KVCache(
                 torch.stack([c.k for c in caches]), torch.stack([c.v for c in caches]),
                 caches[0].length)}
-        return x, new_cache, torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, new_cache, aux
 
     def _run_rwkv(self, params, x, mode, states):
         """Returns (x, new cache or None, aux loss 0). In decode ``states``
@@ -236,12 +286,29 @@ class Model:
 
     # ---------------- training --------------------------------------------
     def loss(self, params, batch):
-        raise NotImplementedError("Model.loss waits for ROADMAP A.13, part 2 (optim/ and a "
-                                  "backward kernel)")
+        """(total, {"xent", "aux"}) of ``batch`` ({"tokens", "labels"}, (B, S)
+        each): position t's logits predict label t + 1."""
+        reason = train_unported_reason(self.cfg)
+        if reason:
+            raise NotImplementedError(f"Model.loss of {self.cfg.name}: {reason}")
+        logits, aux = self.forward(params, batch["tokens"])
+        labels = self._tokens(params, batch["labels"])
+        xent = _mean_xent(logits[:, :-1, :], labels[:, 1:])
+        total = xent + self.cfg.router_aux_loss * aux
+        return total, {"xent": xent, "aux": aux}
 
     def train_step(self, train_cfg, params, opt_state, batch, lr):
-        raise NotImplementedError("Model.train_step waits for ROADMAP A.13, part 2 (optim/ "
-                                  "and a backward kernel)")
+        """One step: the loss and its gradient by autograd, then the
+        optimiser's update. Returns (params, opt_state, metrics with
+        ``loss``); ``params`` is not modified."""
+        reason = train_unported_reason(self.cfg)
+        if reason:
+            raise NotImplementedError(f"Model.train_step of {self.cfg.name}: {reason}")
+        _, update = make_optimizer(train_cfg)
+        (total, metrics), grads = value_and_grad(self.loss, params, batch, has_aux=True)
+        params, opt_state = update(grads, opt_state, params, lr)
+        metrics = {name: value.detach() for name, value in metrics.items()}
+        return params, opt_state, dict(metrics, loss=total.detach())
 
 
 def build_model(cfg: ModelConfig) -> Model:
@@ -251,7 +318,10 @@ def build_model(cfg: ModelConfig) -> Model:
 def params_from_jax(cfg: ModelConfig, params, device="cuda") -> Dict[str, Any]:
     """The reference's parameters (nested dicts of arrays, ``layers``
     stacked ``(L, ...)``, as ``repro.models.transformer.Model.init`` gives
-    them) as the port's tensors on ``device``, in the config's dtype."""
+    them) as the port's tensors on ``device``, in the config's dtype. Each
+    leaf converts whatever its leading axes, so the reference's node-stacked
+    tree (``jax.vmap(model.init)(keys)``, leaves ``(N, ...)``) gives the
+    port's node-stacked tensors (``sharding.fl_step``'s layout)."""
     dev = resolve_device(device)
     dtype = TORCH_DTYPES[cfg.dtype]
 
